@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""GPU smoke check of the PyTorch/CUDA port: the serving path, once, on one card.
+
+Builds the port's CUDA kernels from gaussian_splatting_torch/csrc, holds each
+kernel against its plain PyTorch version on the card, checks the reference
+golden pixels, then renders 4 orbit views (plus depth) of the trained scene
+runs/refscale7k/scene_final.ply at 1296x840 through render_torch.render_views
+and shows, by the launch counters, that every view went through both kernels.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device and nvcc; exits nonzero on any failure.  The last line
+of standard output is {"ok": true, "device": {...}}; the line before it is
+the per-kernel JSON summary.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SCENE = os.path.join(ROOT, "runs", "refscale7k", "scene_final.ply")
+WIDTH, HEIGHT, FOCAL = 1296, 840, 1100.0
+N_VIEWS = 4
+SH_BAND = 3
+ALPHA_THRESHOLD = 0.5  # render_torch.py's default depth threshold
+DEVICE = "cuda:0"
+
+# kernel vs plain tolerances: float32 accumulation order and expf rounding
+IMG_TOL = 1e-4
+T_TOL = 1e-4  # compared only where T >= T_EPS (below it the kernel stops)
+DEPTH_TOL = 1e-3
+HIT_AGREE = 0.9999  # share of pixels where both find (or both miss) a surface
+GOLDEN_TOL = 1e-5
+DEPTH_GOLDEN_TOL = 1e-4
+
+# the reference's 6-gaussian fixture (tests/fixtures.py), 640x480
+FX_XYZ = [[1.0, 2.0, -4.0], [4.0, 5.0, 6.0], [7.0, 8.0, -9.0],
+          [1.0, 2.0, 15.0], [2.5, -1.0, 4.0], [-1.0, -2.0, 10.0]]
+FX_SCALE = [[0.02, 0.03, 0.04], [0.01, 0.05, 0.02], [0.09, 0.03, 0.01],
+            [1.0, 3.0, 0.1], [2.0, 0.2, 0.1], [2.0, 1.0, 0.1]]
+FX_QUAT = [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
+           [1.0, 0.0, 0.0, 0.0], [0.714, -0.002, -0.664, 0.221],
+           [1.0, 0.0, 0.0, 0.0]]
+FX_K = [[430.0, 0.0, 320.0], [0.0, 410.0, 240.0], [0.0, 0.0, 1.0]]
+FX_POSE = [[0.9999, 0.0089, 0.0073, -0.3283],
+           [-0.0106, 0.9568, 0.2905, -1.9260],
+           [-0.0044, -0.2906, 0.9568, 2.9581],
+           [0.0, 0.0, 0.0, 1.0]]
+FX_RENDER = dict(near_thresh=0.3, far_thresh=100.0, cull_mask_padding=10.0,
+                 mh_dist=3.0)
+FX_ALPHA = 0.2
+# (pixel (y, x), channel, value) from the reference CUDA implementation
+IMAGE_GOLDENS = [((340, 348), 0, 0.47698545), ((200, 348), 2, 0.26756114)]
+DEPTH_GOLDENS = [((340, 348), 17.29551887512207), ((200, 348), 13.205718040466309)]
+
+
+def fixture_scene(device):
+    from gaussian_splatting_torch.structs import Camera, GaussianScene
+
+    rgb = np.full((6, 3), 0.5, np.float32)
+    rgb[3], rgb[4], rgb[5] = [0.5, 0, 0], [0, 0.5, 0], [0, 0, 0.5]
+    rgb /= 0.28209479177387814
+    p = np.clip(np.ones((6, 1), np.float32), 1e-4, 1 - 1e-4)
+    scene = GaussianScene.create(
+        np.array(FX_XYZ, np.float32), rgb, np.log(p / (1 - p)),
+        np.log(np.array(FX_SCALE, np.float32)), np.array(FX_QUAT, np.float32),
+        device=device,
+    )
+    import torch
+
+    cam = Camera(torch.tensor(FX_K, device=device), 640, 480)
+    return scene, cam, torch.tensor(FX_POSE, device=device)
+
+
+def scene_view(device):
+    """The trained scene and the first orbit view of render_torch."""
+    import torch
+
+    import render_torch
+    from gaussian_splatting_torch.structs import Camera
+
+    scene = render_torch.load_scene(SCENE, device)
+    xyz = scene.xyz[scene.alive].detach().cpu().numpy()
+    pose = render_torch.orbit_poses(xyz, N_VIEWS)[0]
+    K = torch.tensor([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]],
+                     dtype=torch.float32, device=device)
+    return scene, Camera(K, WIDTH, HEIGHT), torch.from_numpy(pose).to(device)
+
+
+def kernel_inputs(scene, cam, pose, render_kw, sh_band, alpha_kw):
+    from gaussian_splatting_torch.rasterize import (
+        dc_kernel_inputs,
+        depth_kernel_inputs,
+    )
+
+    params = {k: v.detach() for k, v in scene.params().items()}
+    feat, layout, grid, _, _, _ = dc_kernel_inputs(
+        params, scene.alive, pose, cam, n_sh_band=sh_band, **render_kw)
+    dfeat, dlayout, _ = depth_kernel_inputs(
+        params, scene.alive, pose, cam, **alpha_kw)
+    return (feat.contiguous(), layout), (dfeat.contiguous(), dlayout), grid
+
+
+def compare(label, dc, dep, grid, alpha_threshold):
+    """Kernel vs plain version on the same inputs, on the card."""
+    import torch
+
+    from gaussian_splatting_torch.ops import common as cc
+    from gaussian_splatting_torch.ops.depth import depth_fwd_cuda, depth_fwd_plain
+    from gaussian_splatting_torch.ops.render import render_fwd_cuda, render_fwd_plain
+
+    feat, lay = dc
+    k = render_fwd_cuda(feat, lay.gaussian_idx, lay.tile_starts, grid.x_tiles)
+    torch.cuda.synchronize()
+    p = render_fwd_plain(feat, lay.gaussian_idx, lay.tile_starts, grid.x_tiles)
+    torch.cuda.synchronize()
+    img_err = float((k[0:3] - p[0:3]).abs().max())
+    t_mask = p[3] >= cc.T_EPS
+    t_err = float((k[3] - p[3]).abs()[t_mask].max()) if bool(t_mask.any()) else 0.0
+    print(f"  {label} B1: max|image| {img_err:.3e} (tol {IMG_TOL}), "
+          f"max|T| where T>=1e-4 {t_err:.3e} (tol {T_TOL}), "
+          f"{lay.num_splats} splats")
+    if not (img_err <= IMG_TOL and t_err <= T_TOL):
+        raise AssertionError(f"{label}: B1 disagrees with its plain version")
+
+    dfeat, dlay = dep
+    kd = depth_fwd_cuda(dfeat, dlay.gaussian_idx, dlay.tile_starts,
+                        grid.x_tiles, alpha_threshold)
+    torch.cuda.synchronize()
+    # The chunked plain walk multiplies T in cumprod's order, a parallel scan
+    # on the card; where 1 - T lands within rounding of the threshold the
+    # crossing can move to the neighbouring splat.  Count those pixels, then
+    # hold the kernel to the plain walk with chunk=1, which multiplies T in
+    # the kernel's own order.
+    pc = depth_fwd_plain(dfeat, dlay.gaussian_idx, dlay.tile_starts,
+                         grid.x_tiles, alpha_threshold)
+    moved = int(((kd >= 0) != (pc >= 0)).sum()
+                + ((kd >= 0) & (pc >= 0) & ((kd - pc).abs() > DEPTH_TOL)).sum())
+    pd = depth_fwd_plain(dfeat, dlay.gaussian_idx, dlay.tile_starts,
+                         grid.x_tiles, alpha_threshold, chunk=1)
+    torch.cuda.synchronize()
+    hk, hp = kd >= 0, pd >= 0
+    agree = float((hk == hp).float().mean())
+    both = hk & hp
+    d_err = float((kd - pd).abs()[both].max()) if bool(both.any()) else 0.0
+    print(f"  {label} B5: hit/miss agree on {agree:.6f} of pixels "
+          f"(need >= {HIT_AGREE}), max|depth| where both hit {d_err:.3e} "
+          f"(tol {DEPTH_TOL}), {int(both.sum())} hits; against the chunked "
+          f"walk the crossing moved on {moved} of {kd.numel()} pixels")
+    if not (agree >= HIT_AGREE and d_err <= DEPTH_TOL):
+        raise AssertionError(f"{label}: B5 disagrees with its plain version")
+    return img_err, d_err
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn over reps launches, after one warm-up."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps):
+    """Median host time of fn (ending in a synchronize) after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main():
+    import torch
+
+    # 1. device
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    sys.path.insert(0, ROOT)
+    from gaussian_splatting_torch import _build
+
+    dev = torch.device(DEVICE)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[device] {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+    print(smi)
+    print("[device] TF32 off for matmul and cuDNN (the path has no matmul)")
+
+    # 2. build
+    t0 = time.perf_counter()
+    so = _build.build()
+    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped'})")
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build]   {line.strip()}")
+    _build.library()
+
+    # 3. kernel vs plain on the card
+    print("[compare] kernel vs plain PyTorch version, same inputs, on the card")
+    fx, fx_cam, fx_pose = fixture_scene(dev)
+    fx_alpha = dict(near_thresh=0.3, cull_mask_padding=10.0, mh_dist=3.0)
+    dc, dep, grid = kernel_inputs(fx, fx_cam, fx_pose, FX_RENDER, 0,
+                                  dict(fx_alpha))
+    compare("fixture 640x480", dc, dep, grid, FX_ALPHA)
+    from gaussian_splatting_torch.config import SplatConfig
+
+    cfg = SplatConfig()
+    scene_kw = dict(near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+                    cull_mask_padding=cfg.cull_mask_padding, mh_dist=cfg.mh_dist)
+    depth_kw = dict(near_thresh=cfg.near_thresh,
+                    cull_mask_padding=cfg.cull_mask_padding, mh_dist=cfg.mh_dist)
+    scene, cam, pose = scene_view(dev)
+    s_dc, s_dep, s_grid = kernel_inputs(scene, cam, pose, scene_kw, SH_BAND,
+                                        depth_kw)
+    img_err, d_err = compare(f"scene view 0 {WIDTH}x{HEIGHT}", s_dc, s_dep,
+                             s_grid, ALPHA_THRESHOLD)
+
+    # 4. goldens on the card
+    from gaussian_splatting_torch.rasterize import rasterize, render_depth
+
+    fx_params = {k: v.detach() for k, v in fx.params().items()}
+    img = rasterize(fx_params, fx.alive, fx_pose, fx_cam,
+                    background_rgb=torch.zeros(3, device=dev), n_sh_band=0,
+                    **FX_RENDER).image.cpu().numpy()
+    depth = render_depth(fx_params, fx.alive, fx_pose, fx_cam,
+                         alpha_threshold=FX_ALPHA, **fx_alpha).cpu().numpy()
+    for (y, x), ch, want in IMAGE_GOLDENS:
+        got = float(img[y, x, ch])
+        print(f"[golden] image[{y},{x},{ch}] {got:.8f} vs {want} (tol {GOLDEN_TOL})")
+        if abs(got - want) > GOLDEN_TOL:
+            raise AssertionError("image golden pixel off")
+    for (y, x), want in DEPTH_GOLDENS:
+        got = float(depth[y, x, 0])
+        print(f"[golden] depth[{y},{x}] {got:.6f} vs {want:.6f} (tol {DEPTH_GOLDEN_TOL})")
+        if abs(got - want) > DEPTH_GOLDEN_TOL:
+            raise AssertionError("depth golden pixel off")
+
+    # 5. main path: render_torch.render_views, 4 orbit views + depth
+    import render_torch
+
+    with tempfile.TemporaryDirectory() as out:
+        _build.LAUNCHES.clear()
+        views = render_torch.render_views(
+            SCENE, out=out, orbit=N_VIEWS, width=WIDTH, height=HEIGHT,
+            focal=FOCAL, sh_band=SH_BAND, depth=True,
+            alpha_threshold=ALPHA_THRESHOLD, device=DEVICE,
+        )
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    print(f"[main] launches {launches}; {len(pngs)} PNGs written")
+    if launches.get("render_fwd") != N_VIEWS or launches.get("depth_fwd") != N_VIEWS:
+        raise AssertionError(f"expected {N_VIEWS} launches of each kernel, got {launches}")
+    if len(pngs) != 2 * N_VIEWS:
+        raise AssertionError(f"expected {2 * N_VIEWS} PNGs, got {pngs}")
+    for v in views:
+        im, d = v["image"], v["depth"]
+        if tuple(im.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(im).all()):
+            raise AssertionError(f"{v['name']}: image not finite or wrong shape")
+        mean = float(im.clamp(0, 1).mean())
+        hits = int((d > 0).sum())
+        print(f"[main] {v['name']}: num_visible {v['num_visible']}, num_splats "
+              f"{v['num_splats']}, truncated {v['truncated']}, image mean "
+              f"{mean:.4f}, depth hits {hits}")
+        if not (mean > 0.01 and hits > 0 and v["num_splats"] > 0):
+            raise AssertionError(f"{v['name']}: empty render")
+        if not isinstance(v["truncated"], int):
+            raise AssertionError(f"{v['name']}: truncated not reported")
+
+    # timings at the main path's shapes (view 0)
+    params = {k: v.detach() for k, v in scene.params().items()}
+    bg = torch.zeros(3, device=dev)
+    render_ms = host_ms(lambda: rasterize(
+        params, scene.alive, pose, cam, background_rgb=bg, n_sh_band=SH_BAND,
+        **scene_kw), 5)
+    depth_ms = host_ms(lambda: render_depth(
+        params, scene.alive, pose, cam, alpha_threshold=ALPHA_THRESHOLD,
+        **depth_kw), 5)
+    print(f"[time] per view at {WIDTH}x{HEIGHT}: render {render_ms:.3f} ms, "
+          f"depth {depth_ms:.3f} ms (host clock, median of 5 after a warm-up)")
+
+    from gaussian_splatting_torch.ops.depth import depth_fwd_cuda, depth_fwd_plain
+    from gaussian_splatting_torch.ops.render import render_fwd_cuda, render_fwd_plain
+
+    feat, lay = s_dc
+    dfeat, dlay = s_dep
+    b1 = (lay.gaussian_idx, lay.tile_starts, s_grid.x_tiles)
+    b5 = (dlay.gaussian_idx, dlay.tile_starts, s_grid.x_tiles, ALPHA_THRESHOLD)
+    times = {}
+    for label, kern, plain, f, args in (
+        ("render_fwd", render_fwd_cuda, render_fwd_plain, feat, b1),
+        ("depth_fwd", depth_fwd_cuda, depth_fwd_plain, dfeat, b5),
+    ):
+        # plain, kernel, kernel, plain
+        p1 = cuda_ms(lambda: plain(f, *args), 3)
+        k1 = cuda_ms(lambda: kern(f, *args), 20)
+        k2 = cuda_ms(lambda: kern(f, *args), 20)
+        p2 = cuda_ms(lambda: plain(f, *args), 3)
+        times[label] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"[time] {label}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"{p1:.3f} / {p2:.3f} ms (CUDA events; {smi})")
+
+    kernels = [
+        dict(name="render_fwd (B1, DC forward)", route="cuda",
+             source="gaussian_splatting_torch/csrc/render_fwd.cu",
+             replaces="gaussian_splatting_tpu/ops/render.py:525",
+             launches=launches["render_fwd"], max_abs_err=img_err,
+             ms=times["render_fwd"][0], plain_ms=times["render_fwd"][1]),
+        dict(name="depth_fwd (B5, depth)", route="cuda",
+             source="gaussian_splatting_torch/csrc/depth_fwd.cu",
+             replaces="gaussian_splatting_tpu/ops/depth.py:53",
+             launches=launches["depth_fwd"], max_abs_err=d_err,
+             ms=times["depth_fwd"][0], plain_ms=times["depth_fwd"][1]),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
