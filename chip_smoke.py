@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
-"""GPU smoke check of the PyTorch/CUDA port: the serving path, once, on one card.
+"""GPU smoke check of the PyTorch/CUDA port: serving and one training run, on one card.
 
 Builds the port's CUDA kernels from gaussian_splatting_torch/csrc, holds each
 kernel against its plain PyTorch version on the card, checks the reference
-golden pixels, then renders 4 orbit views (plus depth) of the trained scene
-runs/refscale7k/scene_final.ply at 1296x840 through render_torch.render_views
-and shows, by the launch counters, that every view went through both kernels.
+golden pixels, then drives two paths on the trained scene
+runs/refscale7k/scene_final.ply at 1296x840 and shows, by the launch
+counters, that each went through its kernels:
+
+- serving: 4 orbit views (plus depth) through render_torch.render_views
+  (kernels B1, B5);
+- training: 20 trainer.train_step calls on a seeded perturbation of the
+  scene, cycling through the 4 views (kernels B1, B2), checked for finite
+  parameters, the densification counts and a falling loss on every view.
+
+It then times the kernels against their plain versions and profiles one
+training step.
 
     python3 chip_smoke.py
 
@@ -39,6 +48,21 @@ DEPTH_TOL = 1e-3
 HIT_AGREE = 0.9999  # share of pixels where both find (or both miss) a surface
 GOLDEN_TOL = 1e-5
 DEPTH_GOLDEN_TOL = 1e-4
+# B2 against its plain version, per gradient row relative to that row's
+# largest magnitude: both sum per-pixel terms in another order (the kernel
+# per warp and block and then by atomics, the plain walk by parallel scans
+# and index_add_), and D = E - prefix cancels in near-saturated pixels,
+# where 1 / (1 - alpha) reaches 1e4.  Measured on an H100 at 1.6e-6
+# (fixture) and 9.7e-7 (garden view), with a run-to-run spread of the
+# atomics of up to 9.4e-7: the bound leaves ~60x of that
+B2_REL_TOL = 1e-4
+
+# training phase
+TRAIN_STEPS = 20
+TRAIN_SEED = 0
+RGB_NOISE = 0.3  # std of the seeded offset on the SH DC coefficients
+OPACITY_NOISE = 0.5  # std of the seeded offset on pre-sigmoid opacity
+STEP_TIMING_STEPS = 5  # extra steps timed after the checked run
 
 # the reference's 6-gaussian fixture (tests/fixtures.py), 640x480
 FX_XYZ = [[1.0, 2.0, -4.0], [4.0, 5.0, 6.0], [7.0, 8.0, -9.0],
@@ -188,6 +212,227 @@ def host_ms(fn, reps):
     return statistics.median(times)
 
 
+def bwd_args(dc, grid, seed):
+    """B2's inputs at the shapes the training path gives it: features and
+    layout, B1's raw output for them, and a seeded cotangent."""
+    import torch
+
+    from gaussian_splatting_torch.ops.render import render_fwd_cuda
+
+    feat, lay = dc
+    raw = render_fwd_cuda(feat, lay.gaussian_idx, lay.tile_starts, grid.x_tiles)
+    cot = np.random.default_rng(seed).normal(size=tuple(raw.shape)).astype(np.float32)
+    return (feat, lay.gaussian_idx, lay.tile_starts, grid.x_tiles, raw,
+            torch.from_numpy(cot).to(raw.device))
+
+
+def compare_bwd(label, args):
+    """Kernel B2 (launched twice) against render_bwd_plain on the card."""
+    import torch
+
+    from gaussian_splatting_torch.ops.render import render_bwd_cuda, render_bwd_plain
+
+    k1 = render_bwd_cuda(*args)
+    k2 = render_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    p = render_bwd_plain(*args)
+    torch.cuda.synchronize()
+    scale = p.abs().amax(dim=1).clamp_min(1e-30)
+    rel = ((k1 - p).abs().amax(dim=1) / scale).tolist()
+    spread = ((k1 - k2).abs().amax(dim=1) / scale).tolist()
+    abs_err = float((k1 - p).abs().max())
+    fmt = " ".join(f"{x:.2e}" for x in rel)
+    print(f"  {label} B2: max|grad| error per row (u v op a b c r g b) relative "
+          f"to the row's max: {fmt} (tol {B2_REL_TOL}); max abs {abs_err:.3e}")
+    print(f"  {label} B2: run-to-run spread of two launches per row: "
+          f"{' '.join(f'{x:.2e}' for x in spread)}")
+    if not bool(torch.isfinite(k1).all()) or max(rel) > B2_REL_TOL:
+        raise AssertionError(f"{label}: B2 disagrees with its plain version")
+    return abs_err, max(rel), max(spread)
+
+
+def visible_rows(params, alive, pose, cam, cfg):
+    """The gaussians a view makes visible (rasterize's frustum test)."""
+    from gaussian_splatting_torch import geometry as geo
+    from gaussian_splatting_torch.culling import frustum_visible_rows
+
+    xyzT = params["xyz"].T
+    xc, yc, zc = geo.transform_rows(xyzT[0], xyzT[1], xyzT[2], pose)
+    u, v = geo.project_rows(xc, yc, zc, cam.K)
+    return frustum_visible_rows(
+        u, v, zc, (cam.width, cam.height), cfg.near_thresh, cfg.far_thresh,
+        cfg.cull_mask_padding) & alive
+
+
+def training_phase(dev, scene_kw):
+    """The training path: trainer.train_step on the trained scene.
+
+    Ground truth is the unperturbed scene rendered from the 4 orbit views
+    on each step's background (the runner's i % 255 / 255 grey), clipped
+    and stored as uint8; a target on black would make the loss rise with
+    the background on these views, whose mean transmittance is ~0.4.  The
+    state starts from a seeded offset on colour and opacity.  Returns what
+    the later phases need."""
+    import torch
+
+    import render_torch
+    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch.config import SplatConfig
+    from gaussian_splatting_torch.rasterize import rasterize
+    from gaussian_splatting_torch.structs import Camera
+
+    cfg = SplatConfig()
+    scene = render_torch.load_scene(SCENE, dev)
+    params0 = {k: v.detach() for k, v in scene.params().items()}
+    xyz = params0["xyz"][scene.alive].cpu().numpy()
+    poses = [torch.from_numpy(p).to(dev) for p in render_torch.orbit_poses(xyz, N_VIEWS)]
+    K = torch.tensor([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]],
+                     dtype=torch.float32, device=dev)
+    cam = Camera(K, WIDTH, HEIGHT)
+    bgs = [torch.full((3,), (i % 255) / 255.0, device=dev) for i in range(TRAIN_STEPS)]
+    gts = []
+    with torch.no_grad():
+        for i in range(TRAIN_STEPS):
+            img = rasterize(params0, scene.alive, poses[i % N_VIEWS], cam,
+                            background_rgb=bgs[i], n_sh_band=SH_BAND, **scene_kw).image
+            gts.append((img.clamp(0, 1) * 255).round().to(torch.uint8))
+        rng = np.random.default_rng(TRAIN_SEED)
+        n = scene.capacity
+        scene.rgb.add_(torch.from_numpy(
+            rng.normal(0, RGB_NOISE, (n, 3)).astype(np.float32)).to(dev))
+        scene.opacity.add_(torch.from_numpy(
+            rng.normal(0, OPACITY_NOISE, (n, 1)).astype(np.float32)).to(dev))
+    state = trainer.init_train_state(scene, cfg)
+    kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
+    # gts[0] is view 0 on black, as eval_step renders it
+    _, psnr0, ssim0 = trainer.eval_step(state, gts[0], K, poses[0], **kw)
+    print(f"[train] {scene.num_alive()} gaussians, SH band {SH_BAND}, "
+          f"{TRAIN_STEPS} steps over {N_VIEWS} views at {WIDTH}x{HEIGHT}; "
+          f"view 0 before: PSNR {float(psnr0):.4f} SSIM {float(ssim0):.5f}")
+
+    expected = torch.zeros(n, dtype=torch.int32, device=dev)
+    losses, step_ms = [], []
+    _build.LAUNCHES.clear()
+    for i in range(TRAIN_STEPS):
+        pose = poses[i % N_VIEWS]
+        expected += visible_rows(state.params, state.alive, pose, cam, cfg).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = trainer.train_step(state, gts[i], K, pose, bgs[i], **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(info["loss"]))
+        print(f"[train] step {i:2d} view {i % N_VIEWS} bg {i % 255}/255: loss "
+              f"{losses[-1]:.6f} psnr {float(info['psnr']):.4f} splats "
+              f"{info['num_splats']} visible {info['num_visible']} "
+              f"({step_ms[-1]:.2f} ms)")
+    launches = dict(_build.LAUNCHES)
+    print(f"[train] launches {launches}")
+
+    if launches.get("render_fwd") != TRAIN_STEPS or launches.get("render_bwd") != TRAIN_STEPS:
+        raise AssertionError(f"expected {TRAIN_STEPS} launches of B1 and B2, got {launches}")
+    count = int(state.opt_state.count)
+    if count != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"a step was skipped: Adam count {count}, losses {losses}")
+    for k, v in state.params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"params['{k}'] not finite after training")
+    seen = expected > 0
+    if not torch.equal(state.grad_accum_count, expected):
+        raise AssertionError("grad_accum_count differs from the views' visibility")
+    print(f"[train] grad_accum_count equals the per-step visibility count; "
+          f"{int(seen.sum())} gaussians seen, {int((~seen & state.alive).sum())} never; "
+          f"uv_grad_accum max {float(state.uv_grad_accum.max()):.4e}")
+    if bool((state.uv_grad_accum[~seen] != 0).any()) or not bool(
+            (state.xyz_grad_accum[seen].abs().sum(1) > 0).any()):
+        raise AssertionError("accumulators do not follow visibility")
+    for v in range(N_VIEWS):
+        first, last = losses[v], losses[v + N_VIEWS * ((TRAIN_STEPS - 1 - v) // N_VIEWS)]
+        print(f"[train] view {v}: loss first pass {first:.6f}, last pass {last:.6f}")
+        if not last < first:
+            raise AssertionError(f"view {v}: loss did not fall")
+    _, psnr1, ssim1 = trainer.eval_step(state, gts[0], K, poses[0], **kw)
+    print(f"[train] view 0 after: PSNR {float(psnr1):.4f} SSIM {float(ssim1):.5f}")
+
+    # host-clock step time, then one step under the profiler
+    for i in range(STEP_TIMING_STEPS):
+        j = i % N_VIEWS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, gts[j], K, poses[j], bgs[j], **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    steady = step_ms[N_VIEWS:]
+    median_ms = statistics.median(steady)
+    print(f"[time] training step at {WIDTH}x{HEIGHT}: median {median_ms:.3f} ms over "
+          f"{len(steady)} steps after a warm-up pass (host clock), min "
+          f"{min(steady):.3f}, max {max(steady):.3f}")
+    profile_step(lambda: trainer.train_step(state, gts[1], K, poses[1], bgs[1], **kw),
+                 median_ms)
+    return launches, median_ms
+
+
+def profile_step(step, median_ms):
+    """One training step under torch.profiler: device time by part of the
+    step and by kernel, and the device's idle share of a step.
+
+    The trainer's record_function ranges (gs::render, gs::layout, gs::loss,
+    gs::adam) appear on the device timeline as spans; a kernel belongs to
+    the innermost span it starts in.  Autograd launches the backward from
+    its own thread, outside those spans: the kernels in no span are the
+    backward (B2, autograd through SSIM, L1 and the geometry)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = ("gs::render", "gs::layout", "gs::loss", "gs::backward", "gs::adam")
+    spans = {}
+    for e in device:
+        if e.name in ranges:
+            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    kernels = [e for e in device if e.name not in ranges]
+
+    def within(name, k):
+        return any(a <= k.time_range.start < b for a, b in spans.get(name, []))
+
+    parts, by_kernel = {}, {}
+    for k in kernels:
+        ms = k.time_range.elapsed_us() / 1e3
+        by_kernel[k.name] = by_kernel.get(k.name, 0.0) + ms
+        if "render_fwd_kernel" in k.name:
+            part = "B1 (forward kernel)"
+        elif "render_bwd_kernel" in k.name:
+            part = "B2 (backward kernel)"
+        elif within("gs::layout", k):
+            part = "forward tile layout"
+        elif within("gs::render", k):
+            part = "forward geometry, SH, compositing glue"
+        elif within("gs::loss", k):
+            part = "L1 + SSIM forward"
+        elif within("gs::adam", k):
+            part = "Adam, step skip, accumulators"
+        else:
+            part = "backward: autograd through SSIM, L1, geometry"
+        parts[part] = parts.get(part, 0.0) + ms
+    busy_ms = sum(parts.values())
+    print(f"[profile] one training step: device busy {busy_ms:.3f} ms in {len(kernels)} "
+          f"device ops; idle share {1 - busy_ms / median_ms:.3f} of the "
+          f"{median_ms:.3f} ms median step")
+    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {ms:8.3f} ms  {ms / busy_ms:6.1%}  {part}")
+    print("[profile] largest device ops:")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   {ms:8.3f} ms  {name[:100]}")
+    # the full table goes to standard error, out of the way of the summary
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40),
+          file=sys.stderr)
+
+
 def main():
     import torch
 
@@ -215,7 +460,7 @@ def main():
     print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped'})")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
     _build.library()
 
@@ -324,18 +569,45 @@ def main():
         print(f"[time] {label}: kernel {k1:.4f} / {k2:.4f} ms, plain "
               f"{p1:.3f} / {p2:.3f} ms (CUDA events; {smi})")
 
+    # 6. B2 against its plain version on the card, fixture and garden view
+    print("[compare] B2 (DC backward) vs its plain version, seeded cotangent")
+    compare_bwd("fixture 640x480", bwd_args(dc, grid, seed=1))
+    s_bwd = bwd_args(s_dc, s_grid, seed=2)
+    b2_abs, b2_rel, b2_spread = compare_bwd(f"scene view 0 {WIDTH}x{HEIGHT}", s_bwd)
+
+    # 7. training path: 20 train steps on the trained scene, then timings
+    train_launches, step_ms = training_phase(dev, scene_kw)
+
+    from gaussian_splatting_torch.ops.render import render_bwd_cuda, render_bwd_plain
+
+    p1 = cuda_ms(lambda: render_bwd_plain(*s_bwd), 3)
+    k1 = cuda_ms(lambda: render_bwd_cuda(*s_bwd), 20)
+    k2 = cuda_ms(lambda: render_bwd_cuda(*s_bwd), 20)
+    p2 = cuda_ms(lambda: render_bwd_plain(*s_bwd), 3)
+    times["render_bwd"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    print(f"[time] render_bwd: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.3f} / {p2:.3f} ms (CUDA events; {smi})")
+
     kernels = [
         dict(name="render_fwd (B1, DC forward)", route="cuda",
              source="gaussian_splatting_torch/csrc/render_fwd.cu",
              replaces="gaussian_splatting_tpu/ops/render.py:525",
-             launches=launches["render_fwd"], max_abs_err=img_err,
+             launches=launches["render_fwd"] + train_launches["render_fwd"],
+             max_abs_err=img_err,
              ms=times["render_fwd"][0], plain_ms=times["render_fwd"][1]),
         dict(name="depth_fwd (B5, depth)", route="cuda",
              source="gaussian_splatting_torch/csrc/depth_fwd.cu",
              replaces="gaussian_splatting_tpu/ops/depth.py:53",
              launches=launches["depth_fwd"], max_abs_err=d_err,
              ms=times["depth_fwd"][0], plain_ms=times["depth_fwd"][1]),
+        dict(name="render_bwd (B2, DC backward)", route="cuda",
+             source="gaussian_splatting_torch/csrc/render_bwd.cu",
+             replaces="gaussian_splatting_tpu/ops/render.py:635",
+             launches=train_launches["render_bwd"], max_abs_err=b2_abs,
+             max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread,
+             ms=times["render_bwd"][0], plain_ms=times["render_bwd"][1]),
     ]
+    print(f"[time] training step {step_ms:.3f} ms (host clock; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

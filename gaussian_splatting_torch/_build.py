@@ -1,7 +1,8 @@
 """Build and bind the package's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface for ``sm_90a`` (Hopper), loaded with ctypes.  The library is
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, loaded with ctypes.  The library is
 built at first use into ``_build_cache/`` inside the package, under a name
 keyed by a hash of the sources and flags, so an edited kernel is rebuilt
 and an unchanged one is loaded as it is.  A missing ``nvcc`` or a failed
@@ -37,7 +38,7 @@ BUILD_DIR = _PKG / "_build_cache"
 # summation order, not to FMA contraction of cancelling terms (det, mh).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,6 +49,9 @@ SIGNATURES = {
     # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, alpha_threshold,
     # out, stream
     "gs_depth_fwd": (_P, _I, _P, _P, _I, _I, _F, _P, _P),
+    # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, raw, grad_raw,
+    # grad_feat, stream
+    "gs_render_bwd": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -92,21 +96,34 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        tmp = Path(tmp_dir)
+        jobs, objs = [], []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            objs.append(str(tmp / f"{src.stem}.o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp / so.name), *objs]
+        log, failed = [], []
+        for cmd, proc in jobs:  # wait for every job, so none outlives build()
+            log.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append((cmd, proc.returncode, log[-1]))
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append((link, proc.returncode, log[-1]))
+        build_seconds = time.perf_counter() - t0
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            cmd, rc, out = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+        # atomic: a concurrent loader sees all or nothing
+        os.replace(tmp / so.name, so)
     return so
 
 

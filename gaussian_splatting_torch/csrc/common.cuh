@@ -11,6 +11,7 @@ constexpr int kPixelsPerTile = kTilePx * kTilePx;  // one thread per pixel
 constexpr float kHalfTile = 7.5f;                  // (kTilePx - 1) / 2
 constexpr float kAlphaSkip = 0.00392156862f;
 constexpr float kTEps = 1e-4f;
+constexpr float kAlphaClamp = 0.9999f;  // the backward's alpha cap
 
 // Feature rows of the per-gaussian matrices (row r of gaussian g at
 // feat[r * n + g]); the depth rows end with the camera distance at row 6.
@@ -26,7 +27,7 @@ struct SplatGeom {
 };
 
 // Tile-local geometry of gaussian g for tile origin (ox, oy): the same
-// operations in the same order as ops/render.py::_alpha_chunk.
+// operations in the same order as ops/render.py::_splat_chunk.
 __device__ __forceinline__ SplatGeom load_geom(const float* __restrict__ feat,
                                                int n, int g, float ox,
                                                float oy) {
@@ -42,16 +43,29 @@ __device__ __forceinline__ SplatGeom load_geom(const float* __restrict__ feat,
   return s;
 }
 
-// Raw alpha of splat s at tile-local pixel (up, vp): op * exp(-mh / 2),
-// zero unless the Mahalanobis term mh is positive.
+// Terms of splat s at tile-local pixel (up, vp): the offsets du, dv from its
+// centre, the Mahalanobis term mh and the raw alpha op * exp(-mh / 2), zero
+// unless mh is positive.
+struct SplatPixel {
+  float du, dv, mh, alpha;
+};
+
+__device__ __forceinline__ SplatPixel splat_pixel(const SplatGeom& s, float up,
+                                                  float vp) {
+  SplatPixel t;
+  t.du = up - s.ul;
+  t.dv = vp - s.vl;
+  t.mh = (s.c * t.du * t.du - 2.0f * s.b * t.du * t.dv + s.a * t.dv * t.dv) *
+         s.rdet;
+  const float prob = t.mh > 0.0f ? expf(-0.5f * t.mh) : 0.0f;
+  t.alpha = s.op * prob;
+  return t;
+}
+
+// Raw alpha of splat s at tile-local pixel (up, vp).
 __device__ __forceinline__ float splat_alpha(const SplatGeom& s, float up,
                                              float vp) {
-  const float du = up - s.ul;
-  const float dv = vp - s.vl;
-  const float mh =
-      (s.c * du * du - 2.0f * s.b * du * dv + s.a * dv * dv) * s.rdet;
-  const float prob = mh > 0.0f ? expf(-0.5f * mh) : 0.0f;
-  return s.op * prob;
+  return splat_pixel(s, up, vp).alpha;
 }
 
 }  // namespace gs

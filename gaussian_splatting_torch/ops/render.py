@@ -1,5 +1,5 @@
-"""DC forward rasterizer: kernel B1 and its host side (counterpart of
-``gaussian_splatting_tpu/ops/render.py``).
+"""DC rasterizer: kernels B1 (forward) and B2 (backward) and their host
+side (counterpart of ``gaussian_splatting_tpu/ops/render.py``).
 
 ``render_fwd`` dispatches on the device of its input: on a CUDA tensor it
 launches the hand-written kernel ``csrc/render_fwd.cu`` (which replaces the
@@ -9,8 +9,10 @@ same function.  There is no fallback from one to the other.  The kernel's
 source note says what bounds it on the H100 and what its design does
 about that.
 
-The backward kernel (B2) is not ported yet: ``render_tiles`` runs through
-an autograd Function whose backward raises.
+The backward, kernel B2 (``csrc/render_bwd.cu``, replacing the Pallas
+``_bwd_kernel``), dispatches the same way through ``render_bwd``; its plain
+version is ``render_bwd_plain``.  ``render_tiles`` runs the forward through
+an autograd Function whose backward calls ``render_bwd``.
 """
 
 from __future__ import annotations
@@ -58,10 +60,12 @@ def _tile_chunks(gaussian_idx, tile_starts, chunk):
         yield tiles, gid, ok
 
 
-def _alpha_chunk(feat, gid, tiles, x_tiles):
-    """Raw alpha (A, 256, C) of the splats ``gid`` (A, C) at every pixel of
-    their tiles.  The same float operations, in the same order, as the
-    kernels' ``load_geom`` / ``splat_alpha`` (csrc/common.cuh)."""
+def _splat_chunk(feat, gid, tiles, x_tiles):
+    """Per splat-pixel terms of the splats ``gid`` (A, C) at every pixel of
+    their tiles: du, dv, mh and raw alpha (A, 256, C), and the splat rows
+    op, a, b, c, rdet (A, 1, C).  The same float operations, in the same
+    order, as the kernels' ``load_geom`` / ``splat_alpha``
+    (csrc/common.cuh)."""
     up, vp = _pixel_local_coords(feat.dtype, feat.device)
     ox = ((tiles % x_tiles) * TILE_PX).to(feat.dtype)[:, None]
     oy = ((tiles // x_tiles) * TILE_PX).to(feat.dtype)[:, None]
@@ -77,7 +81,13 @@ def _alpha_chunk(feat, gid, tiles, x_tiles):
     dv = vp[None, :, None] - vl
     mh = (c * du * du - 2.0 * b * du * dv + a * dv * dv) * rdet
     prob = torch.where(mh > 0.0, torch.exp(-0.5 * mh), torch.zeros_like(mh))
-    return op * prob
+    return dict(du=du, dv=dv, mh=mh, alpha=op * prob, op=op, a=a, b=b, c=c,
+                rdet=rdet)
+
+
+def _alpha_chunk(feat, gid, tiles, x_tiles):
+    """Raw alpha (A, 256, C) of the splats ``gid`` (A, C) in their tiles."""
+    return _splat_chunk(feat, gid, tiles, x_tiles)["alpha"]
 
 
 def render_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
@@ -111,6 +121,73 @@ def render_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
     return torch.cat([rgb.reshape(3, -1), T.reshape(1, -1)])
 
 
+def render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
+                     grad_raw, chunk: int = PLAIN_CHUNK):
+    """Plain PyTorch version of kernel B2: the VJP of ``render_fwd``'s raw
+    output, with the JAX backward's semantics (``_bwd_kernel``).
+
+    raw: (4, n_tiles*256) output of ``render_fwd``; grad_raw: its cotangent.
+    Returns grad_feat (9, N), the gradients of the feature rows of
+    ``splat_feature_rows``.
+
+    Per pixel, E = sum_ch raw_ch * g_ch + g_T * T is what the loss sees
+    behind the front of the pixel.  The backward walks the splats front to
+    back again with alpha clamped at ALPHA_CLAMP (in T, in the T_EPS mask,
+    in the weights and in 1/(1 - alpha)); D = E - the inclusive prefix of
+    sum_ch g_ch * rgb_ch * w is what lies behind a splat, and
+    q = alpha * dL/dalpha = alpha * (A * T - D / (1 - alpha)) with
+    A = sum_ch g_ch * rgb_ch.  Each splat-pixel pair then contributes the
+    direct derivatives of alpha = op * exp(-mh / 2) (docs/MATH.md), summed
+    over pixels and added onto the gaussian with ``index_add_``.  No
+    autograd: the walk keeps one chunk of fields alive at a time.
+    """
+    n_tiles = tile_starts.numel() - 1
+    dt, dev = feat.dtype, feat.device
+    px = cc.PIXELS_PER_TILE
+    r = raw.reshape(4, n_tiles, px)
+    g = grad_raw.reshape(4, n_tiles, px)
+    e = r[0] * g[0] + r[1] * g[1] + r[2] * g[2] + g[3] * r[3]
+    T = torch.ones(n_tiles, px, dtype=dt, device=dev)
+    pg = torch.zeros(n_tiles, px, dtype=dt, device=dev)
+    grad = torch.zeros(cc.N_FEAT, feat.shape[1], dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for tiles, gid, ok in _tile_chunks(gaussian_idx, tile_starts, chunk):
+        t = _splat_chunk(feat, gid, tiles, x_tiles)
+        keep = ok[:, None, :] & (t["alpha"] >= cc.ALPHA_SKIP)
+        at = torch.where(keep, t["alpha"].clamp_max(cc.ALPHA_CLAMP), zero)
+        prod = torch.cumprod(torch.cat([T[tiles, :, None], 1.0 - at], dim=2), dim=2)
+        t_before = prod[..., :-1]
+        active = t_before >= cc.T_EPS
+        w = torch.where(active, at * t_before, zero)
+        gch = g[:, tiles, :, None]  # (4, A, 256, 1)
+        col = feat[cc.FEAT_R:cc.FEAT_B_COL + 1][:, gid][:, :, None, :]  # (3, A, 1, C)
+        A = gch[0] * col[0] + gch[1] * col[1] + gch[2] * col[2]
+        pg_incl = pg[tiles, :, None] + torch.cumsum(A * w, dim=2)
+        d = e[tiles, :, None] - pg_incl
+        roma = 1.0 / (1.0 - at)
+        q = at * torch.where(active, A * t_before - d * roma, zero)
+        rq = q * t["rdet"]
+        du, dv, mh = t["du"], t["dv"], t["mh"]
+        a, b, c = t["a"], t["b"], t["c"]
+        rows = (
+            lambda: rq * (c * du - b * dv),  # u
+            lambda: rq * (a * dv - b * du),  # v
+            lambda: q / t["op"].clamp_min(1e-30),  # opacity
+            lambda: (-0.5 * rq) * (dv * dv - c * mh),  # a + 1/4
+            lambda: rq * (du * dv - b * mh),  # b / 2
+            lambda: (-0.5 * rq) * (du * du - a * mh),  # c + 1/4
+            lambda: gch[0] * w,  # r, g, b
+            lambda: gch[1] * w,
+            lambda: gch[2] * w,
+        )
+        # one (A, 256, C) field alive at a time; padding slots are dropped
+        sums = torch.stack([row().sum(dim=1)[ok] for row in rows])
+        grad.index_add_(1, gid[ok], sums)
+        T[tiles] = prod.gather(2, active.sum(dim=2, keepdim=True)).squeeze(2)
+        pg[tiles] = pg_incl[..., -1]
+    return grad
+
+
 def _check_layout_args(name, feat, rows, gaussian_idx, tile_starts):
     if feat.dim() != 2 or feat.shape[0] != rows:
         raise ValueError(f"{name}: feat must be ({rows}, N), got {tuple(feat.shape)}")
@@ -124,6 +201,8 @@ def _check_layout_args(name, feat, rows, gaussian_idx, tile_starts):
 def _check_cuda_args(name, feat, gaussian_idx, tile_starts):
     """The kernels take float32 features and int32 indices, contiguous, on
     one CUDA device."""
+    if not feat.is_cuda:
+        raise ValueError(f"{name}: the kernel needs CUDA tensors, got {feat.device}")
     if feat.dtype != torch.float32:
         raise TypeError(f"{name}: feat must be float32, got {feat.dtype}")
     for t, nm in ((gaussian_idx, "gaussian_idx"), (tile_starts, "tile_starts")):
@@ -165,19 +244,62 @@ def render_fwd(feat, gaussian_idx, tile_starts, x_tiles: int):
     raise ValueError(f"render_fwd: no kernel for device {feat.device}")
 
 
+def render_bwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
+                    grad_raw):
+    """Launch kernel B2 on the current stream; same contract as
+    ``render_bwd_plain``.  The kernel adds into a zero-filled grad_feat."""
+    _check_cuda_args("render_bwd", feat, gaussian_idx, tile_starts)
+    n_tiles = tile_starts.numel() - 1
+    want = (4, n_tiles * cc.PIXELS_PER_TILE)
+    for t, nm in ((raw, "raw"), (grad_raw, "grad_raw")):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"render_bwd: {nm} must be float32 {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != feat.device or not t.is_contiguous():
+            raise ValueError(f"render_bwd: {nm} must be contiguous on {feat.device}")
+    grad = torch.zeros(cc.N_FEAT, feat.shape[1], dtype=torch.float32,
+                       device=feat.device)
+    lib = _build.library()
+    err = lib.gs_render_bwd(
+        feat.data_ptr(), feat.shape[1], gaussian_idx.data_ptr(),
+        tile_starts.data_ptr(), n_tiles, x_tiles, raw.data_ptr(),
+        grad_raw.data_ptr(), grad.data_ptr(),
+        torch.cuda.current_stream(feat.device).cuda_stream,
+    )
+    _build.check(err, "gs_render_bwd")
+    _build.LAUNCHES["render_bwd"] += 1
+    return grad
+
+
+def render_bwd(feat, gaussian_idx, tile_starts, x_tiles: int, raw, grad_raw):
+    """Kernel B2 on a CUDA tensor, its plain version on a CPU tensor."""
+    _check_layout_args("render_bwd", feat, cc.N_FEAT, gaussian_idx, tile_starts)
+    if feat.is_cuda:
+        return render_bwd_cuda(feat, gaussian_idx, tile_starts, x_tiles, raw,
+                               grad_raw)
+    if feat.device.type == "cpu":
+        return render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles, raw,
+                                grad_raw)
+    raise ValueError(f"render_bwd: no kernel for device {feat.device}")
+
+
 class _RenderFwd(torch.autograd.Function):
-    """Forward through B1; the DC backward kernel is not ported, so a
-    backward pass fails instead of returning zero gradients."""
+    """Raw DC render through B1; its backward is B2 (``render_bwd``), which
+    gives the features their gradient.  The layout gets none."""
 
     @staticmethod
     def forward(ctx, feat, gaussian_idx, tile_starts, x_tiles):
-        return render_fwd(feat, gaussian_idx, tile_starts, x_tiles)
+        raw = render_fwd(feat, gaussian_idx, tile_starts, x_tiles)
+        ctx.save_for_backward(feat, gaussian_idx, tile_starts, raw)
+        ctx.x_tiles = x_tiles
+        return raw
 
     @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "DC backward kernel (ops/render.py::_bwd_kernel) not ported yet"
-        )
+    def backward(ctx, grad_raw):
+        feat, gaussian_idx, tile_starts, raw = ctx.saved_tensors
+        grad = render_bwd(feat, gaussian_idx, tile_starts, ctx.x_tiles, raw,
+                          grad_raw.contiguous())
+        return grad, None, None, None
 
 
 def _finish(raw, background_rgb, tile_has_output):

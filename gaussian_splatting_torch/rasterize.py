@@ -9,9 +9,10 @@ CPU they run their plain PyTorch versions.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from gaussian_splatting_torch import geometry as geo
 from gaussian_splatting_torch.culling import build_layout, frustum_visible_rows
@@ -90,9 +91,11 @@ def dc_kernel_inputs(
     mh_dist: float,
     n_sh_band: int = 0,
     use_sh_precompute: bool = True,
+    uv_offset: Optional[torch.Tensor] = None,
 ):
     """Everything ``rasterize`` hands the DC rasterizer: (feat (9, N),
-    SplatLayout, TileGrid, visible (N,), u (N,), v (N,))."""
+    SplatLayout, TileGrid, visible (N,), u (N,), v (N,)).  ``uv_offset``
+    (2, N) is added to u and v before visibility and features."""
     _check_inputs(params, alive, camera_T_world, camera)
     n_sh = _active_sh_coeffs(n_sh_band)
     if n_sh > 1 and not use_sh_precompute:
@@ -102,6 +105,9 @@ def dc_kernel_inputs(
         )
     grid = TileGrid(camera.height, camera.width)
     xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(params, camera_T_world, camera)
+    if uv_offset is not None:
+        u = u + uv_offset[0]
+        v = v + uv_offset[1]
     visible = frustum_visible_rows(
         u, v, zc, (camera.width, camera.height),
         near_thresh, far_thresh, cull_mask_padding,
@@ -122,7 +128,7 @@ def dc_kernel_inputs(
         u, v, opacity_v, *conic3,
         rgb[:, 0] * geo.SH_0, rgb[:, 1] * geo.SH_0, rgb[:, 2] * geo.SH_0,
     )
-    with torch.no_grad():
+    with torch.no_grad(), record_function("gs::layout"):
         layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
                               opacity=opacity_v)
     return feat, layout, grid, visible, u, v
@@ -141,18 +147,25 @@ def rasterize(
     background_rgb: torch.Tensor,
     n_sh_band: int = 0,
     use_sh_precompute: bool = True,
+    uv_offset: Optional[torch.Tensor] = None,
 ) -> RenderResult:
     """Render the scene from one camera.
 
     params: dict of parameter tensors (``GaussianScene.params()``); SH
     bands 1..n_sh_band are evaluated once per gaussian along its view
     direction and enter the rasterizer as colour.
+    uv_offset: optional (2, N) zero rows; its gradient is the uv-space
+    gradient the trainer accumulates for densification.
     """
+    if uv_offset is not None and tuple(uv_offset.shape) != (2, params["xyz"].shape[0]):
+        raise ValueError(f"uv_offset shape {tuple(uv_offset.shape)} != "
+                         f"(2, {params['xyz'].shape[0]})")
     feat, layout, grid, visible, u, v = dc_kernel_inputs(
         params, alive, camera_T_world, camera,
         near_thresh=near_thresh, far_thresh=far_thresh,
         cull_mask_padding=cull_mask_padding, mh_dist=mh_dist,
         n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
+        uv_offset=uv_offset,
     )
     img_tiles, T = render_tiles(feat, layout, background_rgb, grid.x_tiles)
     return RenderResult(

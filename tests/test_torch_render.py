@@ -174,14 +174,24 @@ def test_background_blend():
 
 
 def test_backward_is_refused():
-    """The DC backward kernel is not ported: a gradient request fails
-    instead of returning zeros."""
+    """The DC backward (B2) is refused only where it has no kernel: on the
+    CPU a gradient request runs its plain version and gives finite
+    gradients, nonzero only on the visible gaussians; on a device without
+    a kernel it raises instead of returning zeros."""
     scene, cam, pose = _fixture_scene()
     res = rasterize(scene.params(), scene.alive, pose, cam, near_thresh=0.3,
                     far_thresh=100.0, cull_mask_padding=10.0, mh_dist=3.0,
                     background_rgb=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="DC backward kernel"):
-        res.image.sum().backward()
+    res.image.sum().backward()
+    g = scene.rgb.grad
+    assert bool(torch.isfinite(g).all())
+    np.testing.assert_array_equal((g.abs().sum(1) > 0).numpy(), res.visible.numpy())
+    feat = torch.zeros(cc.N_FEAT, 4, device="meta")
+    idx = torch.zeros(2, dtype=torch.int32, device="meta")
+    starts = torch.zeros(2, dtype=torch.int32, device="meta")
+    raw = torch.zeros(4, cc.PIXELS_PER_TILE, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        trender.render_bwd(feat, idx, starts, 1, raw, raw)
 
 
 def test_unported_paths_raise():
