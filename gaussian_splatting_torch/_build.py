@@ -52,6 +52,12 @@ SIGNATURES = {
     # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, raw, grad_raw,
     # grad_feat, stream
     "gs_render_bwd": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
+    # feat, n, basis, n_sh, gaussian_idx, tile_starts, n_tiles, x_tiles, out,
+    # stream
+    "gs_render_sh_fwd": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _P),
+    # feat, n, basis, n_sh, gaussian_idx, tile_starts, n_tiles, x_tiles, raw,
+    # grad_raw, grad_feat, stream
+    "gs_render_sh_bwd": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -19,6 +19,13 @@ constexpr int kFeatU = 0, kFeatV = 1, kFeatOpacity = 2;
 constexpr int kFeatA = 3, kFeatB = 4, kFeatC = 5;
 constexpr int kFeatR = 6, kFeatG = 7, kFeatBCol = 8;
 constexpr int kFeatDepth = 6;
+// The per-pixel SH matrix keeps rows u..c and then 3 * n_sh coefficients,
+// row kShCoeff0 + c * n_sh + k for channel c and basis function k.  The DC
+// coefficient is not scaled by SH_0: basis row 0 carries it.
+constexpr int kShCoeff0 = 6;
+constexpr int kWarpSize = 32;
+constexpr int kWarps = kPixelsPerTile / kWarpSize;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // One splat's geometry relative to the tile centre, staged in shared memory.
 struct SplatGeom {
@@ -66,6 +73,19 @@ __device__ __forceinline__ SplatPixel splat_pixel(const SplatGeom& s, float up,
 __device__ __forceinline__ float splat_alpha(const SplatGeom& s, float up,
                                              float vp) {
   return splat_pixel(s, up, vp).alpha;
+}
+
+// One channel of a splat's colour at a pixel: sum_k coeff[k] * basis[k],
+// summed in order of k (ops/render_sh.py::_sh_colour).  coeff points at the
+// splat's coefficient k = 0 in shared memory, one row of kPixelsPerTile
+// splats per k; basis is the pixel's own basis in registers.
+template <int NSH>
+__device__ __forceinline__ float sh_colour(const float* coeff,
+                                           const float (&basis)[NSH]) {
+  float col = coeff[0] * basis[0];
+#pragma unroll
+  for (int k = 1; k < NSH; ++k) col += coeff[k * kPixelsPerTile] * basis[k];
+  return col;
 }
 
 }  // namespace gs

@@ -39,11 +39,8 @@
 namespace gs {
 namespace {
 
-constexpr int kWarpSize = 32;
-constexpr int kWarps = kPixelsPerTile / kWarpSize;
 constexpr int kGradRows = 9;  // grad_feat has the rows of feat
 constexpr int kRound = 32;    // splats per block-wide reduction round
-constexpr unsigned kFullMask = 0xffffffffu;
 
 struct SplatColour {
   float r, g, b;

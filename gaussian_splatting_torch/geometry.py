@@ -191,6 +191,27 @@ def precompute_rgb_from_sh(sh_coeffs, xyz, camera_center):
     return (sh_coeffs * basis[:, None, :]).sum(dim=2) * R_SH_0
 
 
+def compute_rays(K, width: int, height: int):
+    """Unit rays through every pixel in the camera frame, (H, W, 3)."""
+    u = torch.arange(width, dtype=K.dtype, device=K.device)
+    v = torch.arange(height, dtype=K.dtype, device=K.device)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    d = torch.stack(
+        [(uu - K[0, 2]) / K[0, 0], (vv - K[1, 2]) / K[1, 1], torch.ones_like(uu)],
+        dim=-1,
+    )
+    return d / torch.linalg.norm(d, dim=-1, keepdim=True)
+
+
+def compute_rays_in_world_frame(K, width: int, height: int, camera_T_world):
+    """World-frame unit rays per pixel, (H, W, 3): the camera-frame rays
+    turned by inverse(camera_T_world)'s rotation and normalised again."""
+    rays = compute_rays(K, width, height)
+    world_R_camera = torch.linalg.inv(camera_T_world)[:3, :3]
+    rays = rays @ world_R_camera.T
+    return rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+
+
 def camera_center_from_pose(camera_T_world):
     """World-frame camera centre = inverse(camera_T_world)[:3, 3]."""
     R = camera_T_world[:3, :3]

@@ -15,13 +15,10 @@ from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.structs import TILE_PX
 
 
-def composite_dense(feat, valid, x_tiles: int):
-    """Front-to-back alpha compositing over dense per-tile splat lists.
-
-    feat: (n_tiles, L, 9) per-slot features (rows per ops/common.py);
-    valid: (n_tiles, L) bool.  Returns (premultiplied image (n_tiles, 256, 3),
-    final transmittance (n_tiles, 256)); the background is not applied.
-    """
+def _composite(feat, valid, x_tiles: int, colour):
+    """The reference loop over dense per-tile lists; ``colour(f)`` gives the
+    colour of the slot rows f (n_tiles, rows) at every pixel, broadcastable
+    to (n_tiles, 256, 3)."""
     n_tiles, n_slots, _ = feat.shape
     dtype, dev = feat.dtype, feat.device
     tiles = torch.arange(n_tiles, device=dev)
@@ -42,7 +39,6 @@ def composite_dense(feat, valid, x_tiles: int):
         a = f[:, cc.FEAT_A, None]
         b = f[:, cc.FEAT_B, None]
         c = f[:, cc.FEAT_C, None]
-        rgb = f[:, cc.FEAT_R : cc.FEAT_B_COL + 1]
         du = upix - u
         dv = vpix - v
         det = a * c - b * b
@@ -53,9 +49,37 @@ def composite_dense(feat, valid, x_tiles: int):
                          torch.zeros_like(alpha)) * ok[:, None]
         active = T >= cc.T_EPS
         w = torch.where(active, at * T, torch.zeros_like(T))
-        img = img + w[..., None] * rgb[:, None, :]
+        img = img + w[..., None] * colour(f)
         T = torch.where(active, T * (1.0 - at), T)
     return img, T
+
+
+def composite_dense(feat, valid, x_tiles: int):
+    """Front-to-back alpha compositing over dense per-tile splat lists.
+
+    feat: (n_tiles, L, 9) per-slot features (rows per ops/common.py);
+    valid: (n_tiles, L) bool.  Returns (premultiplied image (n_tiles, 256, 3),
+    final transmittance (n_tiles, 256)); the background is not applied.
+    """
+    return _composite(feat, valid, x_tiles,
+                      lambda f: f[:, None, cc.FEAT_R:cc.FEAT_B_COL + 1])
+
+
+def composite_dense_sh(feat, valid, basis, x_tiles: int):
+    """Per-pixel-SH front-to-back compositing over dense per-tile lists.
+
+    feat: (n_tiles, L, 6 + 3*n_sh) per-slot rows u, v, opacity, a, b, c and
+    the coefficients in the order c*n_sh + k; valid: (n_tiles, L) bool;
+    basis: (n_tiles, 256, n_sh) SH basis at each pixel's view ray.  A
+    splat's colour at a pixel is sum_k basis[p, k] * coeff[c, k]; the rest
+    is ``composite_dense``.
+    """
+    n_tiles, _, width = feat.shape
+    n_sh = (width - 6) // 3
+    return _composite(
+        feat, valid, x_tiles,
+        lambda f: torch.einsum("npk,nck->npc", basis, f[:, 6:].reshape(n_tiles, 3, n_sh)),
+    )
 
 
 def apply_background(img_premul, T_final, background_rgb):

@@ -90,14 +90,52 @@ def _alpha_chunk(feat, gid, tiles, x_tiles):
     return _splat_chunk(feat, gid, tiles, x_tiles)["alpha"]
 
 
-def render_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
-                     chunk: int = PLAIN_CHUNK):
-    """Plain PyTorch version of kernel B1, same inputs and output.
+def _composite_chunk(T_tiles, alpha, ok, clamp=False):
+    """Front-to-back compositing of one chunk: (at, prod, active, w).
 
-    feat: (9, N) rows from ``splat_feature_rows`` (colour pre-scaled by
-    SH_0); gaussian_idx (S,) and tile_starts (n_tiles+1,) from
-    ``culling.build_layout``.  Returns (4, n_tiles*256): premultiplied
-    r, g, b and the final transmittance T of every tile pixel.
+    T_tiles (A, 256): T carried in; alpha (A, 256, C) raw; ok (A, C) real
+    slots.  at is alpha where kept (>= ALPHA_SKIP), clamped at ALPHA_CLAMP
+    when ``clamp`` (the backward's semantics); prod (A, 256, C+1) holds T
+    before each splat and after the last; a pixel composites a splat only
+    while T >= T_EPS before it (``active``), with weight w = at * T.
+    """
+    zero = torch.zeros((), dtype=alpha.dtype, device=alpha.device)
+    keep = ok[:, None, :] & (alpha >= cc.ALPHA_SKIP)
+    at = torch.where(keep, alpha.clamp_max(cc.ALPHA_CLAMP) if clamp else alpha, zero)
+    # T before each splat, then after: the carried T leads the product
+    prod = torch.cumprod(torch.cat([T_tiles[:, :, None], 1.0 - at], dim=2), dim=2)
+    active = prod[..., :-1] >= cc.T_EPS
+    w = torch.where(active, at * prod[..., :-1], zero)
+    return at, prod, active, w
+
+
+def _t_after(prod, active):
+    """T after a chunk: active is a prefix of the chunk, so T stops after
+    the last active splat."""
+    return prod.gather(2, active.sum(dim=2, keepdim=True)).squeeze(2)
+
+
+def _dc_colour(feat):
+    """Colour of the DC rows: the splat's r, g, b at every pixel, one
+    (A, 1, C) channel at a time."""
+    def colour(gid, tiles):
+        for ch in range(3):
+            yield feat[cc.FEAT_R + ch][gid][:, None, :]
+    return colour
+
+
+def _dc_colour_grads(gch, w, tiles):
+    """d/d(r, g, b) of the DC rows, summed over the tile's pixels: (3, A, C)."""
+    return torch.stack([(gch[ch] * w).sum(dim=1) for ch in range(3)])
+
+
+def fwd_walk(feat, gaussian_idx, tile_starts, x_tiles: int, colour,
+             chunk: int = PLAIN_CHUNK):
+    """Plain front-to-back compositing of every tile's splat list.
+
+    ``colour(gid, tiles)`` yields the splats' colour at the tiles' pixels,
+    one channel at a time, each broadcastable to (A, 256, C).  Returns
+    (4, n_tiles*256): premultiplied r, g, b and the final T.
     """
     n_tiles = tile_starts.numel() - 1
     dt, dev = feat.dtype, feat.device
@@ -105,41 +143,33 @@ def render_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
     rgb = torch.zeros(3, n_tiles, cc.PIXELS_PER_TILE, dtype=dt, device=dev)
     for tiles, gid, ok in _tile_chunks(gaussian_idx, tile_starts, chunk):
         alpha = _alpha_chunk(feat, gid, tiles, x_tiles)
-        keep = ok[:, None, :] & (alpha >= cc.ALPHA_SKIP)
-        at = torch.where(keep, alpha, torch.zeros_like(alpha))
-        # T before each splat, then after: the carried T leads the product
-        prod = torch.cumprod(torch.cat([T[tiles, :, None], 1.0 - at], dim=2), dim=2)
-        t_before = prod[..., :-1]
-        # a pixel composites a splat only while T >= T_EPS before it
-        active = t_before >= cc.T_EPS
-        w = torch.where(active, at * t_before, torch.zeros_like(at))
-        for ch in range(3):
-            col = feat[cc.FEAT_R + ch][gid][:, None, :]
+        _, prod, active, w = _composite_chunk(T[tiles], alpha, ok)
+        for ch, col in enumerate(colour(gid, tiles)):
             rgb[ch, tiles] += (w * col).sum(dim=2)
-        # active is a prefix of the chunk: T stops after the last active splat
-        T[tiles] = prod.gather(2, active.sum(dim=2, keepdim=True)).squeeze(2)
+        T[tiles] = _t_after(prod, active)
     return torch.cat([rgb.reshape(3, -1), T.reshape(1, -1)])
 
 
-def render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
-                     grad_raw, chunk: int = PLAIN_CHUNK):
-    """Plain PyTorch version of kernel B2: the VJP of ``render_fwd``'s raw
-    output, with the JAX backward's semantics (``_bwd_kernel``).
+def bwd_walk(feat, gaussian_idx, tile_starts, x_tiles: int, raw, grad_raw,
+             colour, colour_grads, chunk: int = PLAIN_CHUNK):
+    """Plain VJP of ``fwd_walk``'s raw output with the JAX backward's
+    semantics; returns the gradient of every row of ``feat``.
 
-    raw: (4, n_tiles*256) output of ``render_fwd``; grad_raw: its cotangent.
-    Returns grad_feat (9, N), the gradients of the feature rows of
-    ``splat_feature_rows``.
+    ``colour`` is as for ``fwd_walk``; ``colour_grads(gch, w, tiles)``
+    gives the gradients of the colour rows summed over the tiles' pixels,
+    (rows - 6, A, C), from the cotangent gch (4, A, 256, 1) and the
+    clamped weights w (A, 256, C).
 
     Per pixel, E = sum_ch raw_ch * g_ch + g_T * T is what the loss sees
-    behind the front of the pixel.  The backward walks the splats front to
-    back again with alpha clamped at ALPHA_CLAMP (in T, in the T_EPS mask,
-    in the weights and in 1/(1 - alpha)); D = E - the inclusive prefix of
-    sum_ch g_ch * rgb_ch * w is what lies behind a splat, and
-    q = alpha * dL/dalpha = alpha * (A * T - D / (1 - alpha)) with
-    A = sum_ch g_ch * rgb_ch.  Each splat-pixel pair then contributes the
-    direct derivatives of alpha = op * exp(-mh / 2) (docs/MATH.md), summed
-    over pixels and added onto the gaussian with ``index_add_``.  No
-    autograd: the walk keeps one chunk of fields alive at a time.
+    behind the front of the pixel.  The walk goes front to back again with
+    alpha clamped at ALPHA_CLAMP (in T, in the T_EPS mask, in the weights
+    and in 1/(1 - alpha)); D = E - the inclusive prefix of A * w is what
+    lies behind a splat, with A = sum_ch g_ch * colour_ch, and
+    q = alpha * dL/dalpha = alpha * (A * T - D / (1 - alpha)).  Each
+    splat-pixel pair then contributes the direct derivatives of
+    alpha = op * exp(-mh / 2) (docs/MATH.md), summed over pixels and added
+    onto the gaussian with ``index_add_``.  No autograd: the walk keeps
+    one chunk of fields alive at a time.
     """
     n_tiles = tile_starts.numel() - 1
     dt, dev = feat.dtype, feat.device
@@ -149,19 +179,16 @@ def render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
     e = r[0] * g[0] + r[1] * g[1] + r[2] * g[2] + g[3] * r[3]
     T = torch.ones(n_tiles, px, dtype=dt, device=dev)
     pg = torch.zeros(n_tiles, px, dtype=dt, device=dev)
-    grad = torch.zeros(cc.N_FEAT, feat.shape[1], dtype=dt, device=dev)
+    grad = torch.zeros(feat.shape[0], feat.shape[1], dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     for tiles, gid, ok in _tile_chunks(gaussian_idx, tile_starts, chunk):
         t = _splat_chunk(feat, gid, tiles, x_tiles)
-        keep = ok[:, None, :] & (t["alpha"] >= cc.ALPHA_SKIP)
-        at = torch.where(keep, t["alpha"].clamp_max(cc.ALPHA_CLAMP), zero)
-        prod = torch.cumprod(torch.cat([T[tiles, :, None], 1.0 - at], dim=2), dim=2)
+        at, prod, active, w = _composite_chunk(T[tiles], t["alpha"], ok, clamp=True)
         t_before = prod[..., :-1]
-        active = t_before >= cc.T_EPS
-        w = torch.where(active, at * t_before, zero)
         gch = g[:, tiles, :, None]  # (4, A, 256, 1)
-        col = feat[cc.FEAT_R:cc.FEAT_B_COL + 1][:, gid][:, :, None, :]  # (3, A, 1, C)
-        A = gch[0] * col[0] + gch[1] * col[1] + gch[2] * col[2]
+        A = None
+        for ch, col in enumerate(colour(gid, tiles)):
+            A = gch[ch] * col if A is None else A + gch[ch] * col
         pg_incl = pg[tiles, :, None] + torch.cumsum(A * w, dim=2)
         d = e[tiles, :, None] - pg_incl
         roma = 1.0 / (1.0 - at)
@@ -176,16 +203,40 @@ def render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
             lambda: (-0.5 * rq) * (dv * dv - c * mh),  # a + 1/4
             lambda: rq * (du * dv - b * mh),  # b / 2
             lambda: (-0.5 * rq) * (du * du - a * mh),  # c + 1/4
-            lambda: gch[0] * w,  # r, g, b
-            lambda: gch[1] * w,
-            lambda: gch[2] * w,
         )
         # one (A, 256, C) field alive at a time; padding slots are dropped
-        sums = torch.stack([row().sum(dim=1)[ok] for row in rows])
+        sums = torch.cat([torch.stack([row().sum(dim=1)[ok] for row in rows]),
+                          colour_grads(gch, w, tiles)[:, ok]])
         grad.index_add_(1, gid[ok], sums)
-        T[tiles] = prod.gather(2, active.sum(dim=2, keepdim=True)).squeeze(2)
+        T[tiles] = _t_after(prod, active)
         pg[tiles] = pg_incl[..., -1]
     return grad
+
+
+def render_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
+                     chunk: int = PLAIN_CHUNK):
+    """Plain PyTorch version of kernel B1, same inputs and output.
+
+    feat: (9, N) rows from ``splat_feature_rows`` (colour pre-scaled by
+    SH_0); gaussian_idx (S,) and tile_starts (n_tiles+1,) from
+    ``culling.build_layout``.  Returns (4, n_tiles*256): premultiplied
+    r, g, b and the final transmittance T of every tile pixel.
+    """
+    return fwd_walk(feat, gaussian_idx, tile_starts, x_tiles, _dc_colour(feat), chunk)
+
+
+def render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
+                     grad_raw, chunk: int = PLAIN_CHUNK):
+    """Plain PyTorch version of kernel B2: the VJP of ``render_fwd``'s raw
+    output, with the JAX backward's semantics (``_bwd_kernel``; see
+    ``bwd_walk``).
+
+    raw: (4, n_tiles*256) output of ``render_fwd``; grad_raw: its cotangent.
+    Returns grad_feat (9, N), the gradients of the feature rows of
+    ``splat_feature_rows``.
+    """
+    return bwd_walk(feat, gaussian_idx, tile_starts, x_tiles, raw, grad_raw,
+                    _dc_colour(feat), _dc_colour_grads, chunk)
 
 
 def _check_layout_args(name, feat, rows, gaussian_idx, tile_starts):
@@ -214,6 +265,18 @@ def _check_cuda_args(name, feat, gaussian_idx, tile_starts):
                   (tile_starts, "tile_starts")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be contiguous")
+
+
+def _check_raw_args(name, feat, n_tiles, raw, grad_raw):
+    """A backward kernel takes the forward's raw output and its cotangent
+    as contiguous float32 (4, n_tiles*256) tensors beside feat."""
+    want = (4, n_tiles * cc.PIXELS_PER_TILE)
+    for t, nm in ((raw, "raw"), (grad_raw, "grad_raw")):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {nm} must be float32 {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != feat.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous on {feat.device}")
 
 
 def render_fwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int):
@@ -250,13 +313,7 @@ def render_bwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
     ``render_bwd_plain``.  The kernel adds into a zero-filled grad_feat."""
     _check_cuda_args("render_bwd", feat, gaussian_idx, tile_starts)
     n_tiles = tile_starts.numel() - 1
-    want = (4, n_tiles * cc.PIXELS_PER_TILE)
-    for t, nm in ((raw, "raw"), (grad_raw, "grad_raw")):
-        if tuple(t.shape) != want or t.dtype != torch.float32:
-            raise ValueError(f"render_bwd: {nm} must be float32 {want}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != feat.device or not t.is_contiguous():
-            raise ValueError(f"render_bwd: {nm} must be contiguous on {feat.device}")
+    _check_raw_args("render_bwd", feat, n_tiles, raw, grad_raw)
     grad = torch.zeros(cc.N_FEAT, feat.shape[1], dtype=torch.float32,
                        device=feat.device)
     lib = _build.library()

@@ -1,6 +1,6 @@
 """Forward rendering pipeline: geometry -> culling -> CUDA rasterizer
-(counterpart of ``gaussian_splatting_tpu/rasterize.py``, DC branch and
-depth).
+(counterpart of ``gaussian_splatting_tpu/rasterize.py``: the DC branch, the
+per-pixel SH branch and depth).
 
 The pipeline runs on whatever device the parameters live on: on CUDA the
 rasterizer and depth renderer launch their hand-written kernels, on the
@@ -15,10 +15,15 @@ import torch
 from torch.profiler import record_function
 
 from gaussian_splatting_torch import geometry as geo
-from gaussian_splatting_torch.culling import build_layout, frustum_visible_rows
+from gaussian_splatting_torch.culling import SplatLayout, build_layout, frustum_visible_rows
 from gaussian_splatting_torch.ops.depth import depth_feature_rows, render_depth_tiles
 from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
 from gaussian_splatting_torch.ops.render import render_tiles, splat_feature_rows
+from gaussian_splatting_torch.ops.render_sh import (
+    build_pixel_basis,
+    render_tiles_sh,
+    sh_splat_feature_rows,
+)
 from gaussian_splatting_torch.structs import Camera, TileGrid
 
 
@@ -79,7 +84,19 @@ def _camera_rows(params, camera_T_world, camera):
     return xc, yc, zc, u, v, conic3, opacity_v
 
 
-def dc_kernel_inputs(
+class KernelInputs(NamedTuple):
+    """Everything ``rasterize`` hands the rasterizer kernels."""
+
+    feat: torch.Tensor  # (9, N) DC rows, or (6 + 3*n_sh, N) per-pixel SH rows
+    basis: Optional[torch.Tensor]  # (n_sh, n_tiles*256) per-pixel SH only
+    layout: SplatLayout
+    grid: TileGrid
+    visible: torch.Tensor  # (N,) bool
+    u: torch.Tensor  # (N,)
+    v: torch.Tensor  # (N,)
+
+
+def kernel_inputs(
     params: dict,
     alive: torch.Tensor,
     camera_T_world: torch.Tensor,
@@ -92,17 +109,14 @@ def dc_kernel_inputs(
     n_sh_band: int = 0,
     use_sh_precompute: bool = True,
     uv_offset: Optional[torch.Tensor] = None,
-):
-    """Everything ``rasterize`` hands the DC rasterizer: (feat (9, N),
-    SplatLayout, TileGrid, visible (N,), u (N,), v (N,)).  ``uv_offset``
+) -> KernelInputs:
+    """Camera rows, visibility and the tile layout, shared by both colour
+    paths, and the features of the one ``rasterize`` takes: per-pixel SH
+    (``basis`` set) when n_sh > 1 and not ``use_sh_precompute``, else DC
+    colour with the SH bands evaluated once per gaussian.  ``uv_offset``
     (2, N) is added to u and v before visibility and features."""
     _check_inputs(params, alive, camera_T_world, camera)
     n_sh = _active_sh_coeffs(n_sh_band)
-    if n_sh > 1 and not use_sh_precompute:
-        raise NotImplementedError(
-            "per-pixel SH (use_sh_precompute=False) needs kernels B3/B4 "
-            "(ops/render_sh.py), not ported yet: see ROADMAP.md section A"
-        )
     grid = TileGrid(camera.height, camera.width)
     xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(params, camera_T_world, camera)
     if uv_offset is not None:
@@ -113,25 +127,34 @@ def dc_kernel_inputs(
         near_thresh, far_thresh, cull_mask_padding,
     )
     visible = visible & alive
-
-    if n_sh == 1:
-        rgb = params["rgb"]
-    else:
-        coeffs = torch.cat(
-            [params["rgb"][:, :, None], params["sh"][:, :, : n_sh - 1]], dim=2
-        )
-        center = geo.camera_center_from_pose(camera_T_world)
-        rgb = geo.precompute_rgb_from_sh(coeffs, params["xyz"], center)
-    # the DC rasterizer path scales colour by SH_0; folding it into the
-    # features keeps the kernel linear in colour
-    feat = splat_feature_rows(
-        u, v, opacity_v, *conic3,
-        rgb[:, 0] * geo.SH_0, rgb[:, 1] * geo.SH_0, rgb[:, 2] * geo.SH_0,
-    )
     with torch.no_grad(), record_function("gs::layout"):
         layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
                               opacity=opacity_v)
-    return feat, layout, grid, visible, u, v
+
+    basis = None
+    if n_sh > 1:
+        coeffs = torch.cat(
+            [params["rgb"][:, :, None], params["sh"][:, :, : n_sh - 1]], dim=2
+        )
+    if n_sh > 1 and not use_sh_precompute:
+        # per-pixel SH: the kernel contracts the raw coefficients with each
+        # pixel's view-direction basis; the basis gets no gradient
+        feat = sh_splat_feature_rows(u, v, opacity_v, conic3, coeffs)
+        with torch.no_grad():
+            basis = build_pixel_basis(camera.K, camera_T_world, n_sh, grid)
+    else:
+        if n_sh == 1:
+            rgb = params["rgb"]
+        else:
+            center = geo.camera_center_from_pose(camera_T_world)
+            rgb = geo.precompute_rgb_from_sh(coeffs, params["xyz"], center)
+        # the DC rasterizer path scales colour by SH_0; folding it into the
+        # features keeps the kernel linear in colour
+        feat = splat_feature_rows(
+            u, v, opacity_v, *conic3,
+            rgb[:, 0] * geo.SH_0, rgb[:, 1] * geo.SH_0, rgb[:, 2] * geo.SH_0,
+        )
+    return KernelInputs(feat, basis, layout, grid, visible, u, v)
 
 
 def rasterize(
@@ -151,31 +174,38 @@ def rasterize(
 ) -> RenderResult:
     """Render the scene from one camera.
 
-    params: dict of parameter tensors (``GaussianScene.params()``); SH
-    bands 1..n_sh_band are evaluated once per gaussian along its view
-    direction and enter the rasterizer as colour.
+    params: dict of parameter tensors (``GaussianScene.params()``).  With
+    ``use_sh_precompute`` (the default) SH bands 1..n_sh_band are evaluated
+    once per gaussian along its view direction and enter the DC rasterizer
+    (B1/B2) as colour; without it, every pixel evaluates them along its own
+    view ray in the per-pixel SH rasterizer (B3/B4).  Band 0 always takes
+    the DC rasterizer.
     uv_offset: optional (2, N) zero rows; its gradient is the uv-space
     gradient the trainer accumulates for densification.
     """
     if uv_offset is not None and tuple(uv_offset.shape) != (2, params["xyz"].shape[0]):
         raise ValueError(f"uv_offset shape {tuple(uv_offset.shape)} != "
                          f"(2, {params['xyz'].shape[0]})")
-    feat, layout, grid, visible, u, v = dc_kernel_inputs(
+    k = kernel_inputs(
         params, alive, camera_T_world, camera,
         near_thresh=near_thresh, far_thresh=far_thresh,
         cull_mask_padding=cull_mask_padding, mh_dist=mh_dist,
         n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
         uv_offset=uv_offset,
     )
-    img_tiles, T = render_tiles(feat, layout, background_rgb, grid.x_tiles)
+    if k.basis is None:
+        img_tiles, T = render_tiles(k.feat, k.layout, background_rgb, k.grid.x_tiles)
+    else:
+        img_tiles, T = render_tiles_sh(k.feat, k.basis, k.layout, background_rgb,
+                                       k.grid.x_tiles)
     return RenderResult(
-        image=tiles_to_image(img_tiles, grid),
-        visible=visible,
-        uv=torch.stack([u, v], dim=1),
+        image=tiles_to_image(img_tiles, k.grid),
+        visible=k.visible,
+        uv=torch.stack([k.u, k.v], dim=1),
         transmittance=T,
-        num_splats=layout.num_splats,
-        num_visible=layout.num_visible,
-        truncated=layout.truncated,
+        num_splats=k.layout.num_splats,
+        num_visible=k.layout.num_visible,
+        truncated=k.layout.truncated,
     )
 
 

@@ -1,15 +1,19 @@
 """One training step and the test-view evaluation (counterpart of
 ``gaussian_splatting_tpu/trainer.py``'s ``train_step`` and ``eval_step``).
 
-A step is render -> L1 + SSIM loss -> backward (kernel B2 on the card) ->
-Adam with per-leaf learning rates -> densification accumulators.  The
-state is a ``TrainState`` of plain tensors, and ``train_step`` returns a
-new one; it writes nothing in place.  uv-space gradients come from a zero
-``uv_offset`` argument of ``rasterize``, as in the JAX package.
+A step is render -> L1 + SSIM loss -> backward -> Adam with per-leaf
+learning rates -> densification accumulators.  ``config.use_sh_precompute``
+picks the colour path: True (the default) renders through kernels B1/B2
+with SH evaluated once per gaussian, False through the per-pixel SH kernels
+B3/B4 (at SH band 1 or more).  The state is a ``TrainState`` of plain
+tensors, and ``train_step`` returns a new one; it writes nothing in place.
+uv-space gradients come from a zero ``uv_offset`` argument of
+``rasterize``, as in the JAX package.  ``sh_band_for_iteration`` gives the
+band a step of the schedule renders at.
 
 Not ported here: ``train_steps_scan`` (the JAX package's multi-step
-dispatch for the TPU) and the schedule layer (opacity reset, adaptive
-density control, the SH band schedule), which is the next slice.
+dispatch for the TPU), and opacity reset and adaptive density control,
+which are the next slice.
 """
 
 from __future__ import annotations
@@ -173,3 +177,11 @@ def eval_step(
                   camera_hw, n_sh_band, bg)
     psnr, ssim_val = eval_psnr_ssim(res.image, gt)
     return res.image, psnr, ssim_val
+
+
+def sh_band_for_iteration(config: SplatConfig, iteration: int) -> int:
+    """The active SH band at an iteration: a band is added every
+    ``add_sh_band_interval`` iterations, up to ``max_sh_band``."""
+    if config.max_sh_band == 0:
+        return 0
+    return min(iteration // config.add_sh_band_interval, config.max_sh_band)

@@ -1,7 +1,11 @@
 """The port's serving slice end to end against the JAX package: a
 subsample of the trained reference scene through rasterize and
-render_depth, scene files, weight conversion, and the render_torch CLI."""
+render_depth, scene files, weight conversion, and the render_torch CLI;
+then the per-pixel SH path (use_sh_precompute=False) through rasterize:
+its golden pixels, its equality with the DC path at zero higher bands,
+and image and gradients against the JAX package at SH bands 1-3."""
 
+import functools
 import os
 import struct
 import subprocess
@@ -179,3 +183,131 @@ def test_render_torch_cli(tmp_path):
     bad = subprocess.run(cmd[:3] + ["--dataset_path", "garden", "--device", "cpu"],
                          env=env, capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0 and "dataio" in bad.stderr
+
+
+# --- the per-pixel SH path (use_sh_precompute=False) -------------------------
+
+SH_RENDER = dict(near_thresh=0.3, far_thresh=100.0, cull_mask_padding=10.0,
+                 mh_dist=3.0)
+# rasterize end to end at 64x48, relative to each leaf's largest gradient:
+# the geometry chain's float32 rounding amplified by its Jacobians, and the
+# JAX kernel's pixel-moment conic rows (tests/test_torch_render_bwd.py)
+SH_RASTER_REL_TOL = 2e-4
+SH_BG = np.array([0.2, 0.3, 0.4], np.float32)
+
+
+def _fixture_sh(sh_value=None, seed=9):
+    """The 6-gaussian fixture with opacity 0.9 and SH bands 1..3 either all
+    ``sh_value`` or seeded."""
+    s = fx.test_scene(opacity_presigmoid=True)
+    p = {k: np.asarray(v).copy() for k, v in s.params().items()}
+    if sh_value is None:
+        p["opacity"][:] = np.log(0.9 / 0.1)
+        p["sh"] = (0.3 * np.random.default_rng(seed).normal(size=p["sh"].shape)).astype(np.float32)
+    else:
+        p["sh"][:] = sh_value
+    return p, np.asarray(s.alive)
+
+
+def _port_fixture(params, alive, cam, grad=False, **kw):
+    scene = convert.scene_from_numpy(params, alive, "cpu")
+    tp = {k: v.detach().clone().requires_grad_(grad) for k, v in scene.params().items()}
+    pose = torch.tensor(np.asarray(fx.test_camera_T_world()))
+    return rasterize(tp, scene.alive, pose, cam, **SH_RENDER, **kw), tp
+
+
+FX_CAM = Camera(torch.tensor(np.asarray(fx.test_camera().K)), 640, 480)
+
+
+def test_per_pixel_sh_golden_pixels():
+    """Every sh coefficient 0.1 at band 3 (tests/test_render.py: pinned by a
+    float64 per-pixel compositing oracle)."""
+    params, alive = _fixture_sh(0.1)
+    res, _ = _port_fixture(params, alive, FX_CAM, n_sh_band=3, use_sh_precompute=False,
+                           background_rgb=torch.zeros(3))
+    img = res.image.numpy()
+    np.testing.assert_allclose(img[340, 348], [0.63091441, 0.15392897, 0.15392897],
+                               atol=1e-5)
+    np.testing.assert_allclose(img[200, 348], [0.14358045, 0.11027012, 0.37783123],
+                               atol=1e-5)
+
+
+def test_per_pixel_sh_dc_only_matches_dc_path():
+    """Zero higher bands through the per-pixel path equal the DC path: basis
+    row 0 is the constant SH_0 that the DC path folds into colour."""
+    params, alive = _fixture_sh(0.0)
+    bg = torch.zeros(3)
+    pp, _ = _port_fixture(params, alive, FX_CAM, n_sh_band=3, use_sh_precompute=False,
+                          background_rgb=bg)
+    dc, _ = _port_fixture(params, alive, FX_CAM, background_rgb=bg)
+    np.testing.assert_allclose(pp.image.numpy(), dc.image.numpy(), atol=1e-6, rtol=0)
+    assert float(dc.image.max()) > 0.1
+
+
+def test_per_pixel_sh_grads_only_on_visible():
+    """Gradients reach every leaf, sh included, through B4's plain version:
+    finite, nonzero exactly on the visible gaussians (tests/test_render.py's
+    check, on its 640x480 view)."""
+    params, alive = _fixture_sh(0.1)
+    res, tp = _port_fixture(params, alive, FX_CAM, grad=True, n_sh_band=3,
+                            use_sh_precompute=False, background_rgb=torch.zeros(3))
+    (res.image ** 2).sum().backward()
+    vis = res.visible.numpy()
+    assert vis.any() and not vis.all()
+    for name, t in tp.items():
+        g = t.grad.reshape(t.shape[0], -1).numpy()
+        assert np.isfinite(g).all(), name
+        np.testing.assert_array_equal(np.abs(g).sum(1) > 0, vis, err_msg=name)
+
+
+@functools.partial(jax.jit, static_argnums=(6,))
+def _jax_sh_raster(params, alive, pose, K, weights, bg, band):
+    """jax.grad of the JAX rasterize's per-pixel SH path at 64x48 (Pallas in
+    interpret mode, f32), for every param and uv_offset."""
+    def loss(params, uv_offset):
+        res = jras.rasterize(
+            params, alive, pose, JCamera(K=K, width=64, height=48), background_rgb=bg,
+            n_sh_band=band, use_sh_precompute=False, splat_capacity=1 << 14,
+            chunk=256, uv_offset=uv_offset, interpret=True, kernel_precision="f32",
+            **SH_RENDER,
+        )
+        return jnp.sum(res.image * weights), res.image
+
+    return jax.grad(loss, argnums=(0, 1), has_aux=True)(
+        params, jnp.zeros((2, alive.shape[0]), jnp.float32))
+
+
+@pytest.mark.parametrize("band", [1, 2, 3])
+def test_per_pixel_sh_slice_matches_jax(band):
+    """rasterize(..., use_sh_precompute=False) at SH band 1, 2, 3 on the
+    fixture at 64x48 with a background: the image and d(sum(image * W)) /
+    d(every param, uv_offset) against the JAX package.  In this path xyz
+    gets its gradient only through u, v and the conic (the basis is
+    constant), in both packages."""
+    params, alive = _fixture_sh()
+    K = np.asarray(fx.test_camera().K) * np.array([[0.1], [0.1], [1.0]], np.float32)
+    pose = np.asarray(fx.test_camera_T_world())
+    weights = np.random.default_rng(band).normal(size=(48, 64, 3)).astype(np.float32)
+    (jg, juv), jimg = _jax_sh_raster(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(alive),
+        jnp.asarray(pose), jnp.asarray(K), jnp.asarray(weights), jnp.asarray(SH_BG),
+        band)
+    scene = convert.scene_from_numpy(params, alive, "cpu")
+    tp = {k: v.detach().clone().requires_grad_(True) for k, v in scene.params().items()}
+    uv = torch.zeros(2, alive.shape[0], requires_grad=True)
+    res = rasterize(tp, scene.alive, torch.tensor(pose), Camera(torch.tensor(K), 64, 48),
+                    background_rgb=torch.tensor(SH_BG), n_sh_band=band,
+                    use_sh_precompute=False, uv_offset=uv, **SH_RENDER)
+    np.testing.assert_allclose(res.image.detach().numpy(), np.asarray(jimg), atol=2e-5,
+                               rtol=0)
+    (res.image * torch.tensor(weights)).sum().backward()
+    leaves = {**{k: (tp[k].grad, jg[k]) for k in tp}, "uv_offset": (uv.grad, juv)}
+    for k, (got, want) in leaves.items():
+        want = np.asarray(want)
+        n = (band + 1) ** 2 - 1
+        if k == "sh" and n < want.shape[2]:  # bands above n_sh_band get none
+            assert np.abs(got.numpy()[:, :, n:]).max() == 0 == np.abs(want[:, :, n:]).max()
+            got, want = got[:, :, :n], want[:, :, :n]
+        assert np.abs(want).max() > 0, k
+        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert err < SH_RASTER_REL_TOL, (k, err)

@@ -18,6 +18,7 @@ from gaussian_splatting_torch.culling import build_layout
 from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.ops import reference_impl as ref
 from gaussian_splatting_torch.ops import render as trender
+from gaussian_splatting_torch.ops import render_sh as trsh
 from gaussian_splatting_torch.rasterize import rasterize
 from gaussian_splatting_torch.structs import Camera, GaussianScene, TileGrid
 from tests import fixtures as fx
@@ -195,10 +196,21 @@ def test_backward_is_refused():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _render_fixture(n_sh_band=2, use_sh_precompute=False)
+    """The per-pixel SH path, once refused, now renders (B3's plain version
+    on the CPU); every rasterizer entry still raises on a device without a
+    kernel instead of returning zeros."""
+    res = _render_fixture(n_sh_band=2, use_sh_precompute=False)
+    img = res.image.numpy()
+    assert np.isfinite(img).all() and img.max() > 0.1 and res.num_splats == 641
     feat = torch.zeros(cc.N_FEAT, 4, device="meta")
     idx = torch.zeros(2, dtype=torch.int32, device="meta")
     starts = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         trender.render_fwd(feat, idx, starts, 1)
+    sh_feat = torch.zeros(trsh.sh_feat_rows(4), 4, device="meta")
+    basis = torch.zeros(4, cc.PIXELS_PER_TILE, device="meta")
+    raw = torch.zeros(4, cc.PIXELS_PER_TILE, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        trsh.render_sh_fwd(sh_feat, basis, idx, starts, 1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        trsh.render_sh_bwd(sh_feat, basis, idx, starts, 1, raw, raw)

@@ -26,10 +26,16 @@ from gaussian_splatting_tpu.rasterize import rasterize as jrasterize
 from gaussian_splatting_torch import convert, trainer
 from gaussian_splatting_torch.config import SplatConfig
 from tests import fixtures as fx
+from tests.test_render_grads import _small_camera
 
 JCFG = JConfig(splat_capacity=1 << 17, chunk=256, kernel_precision="f32")
 CFG = SplatConfig()
 HW = (480, 640)
+# the per-pixel SH path (kernels B3/B4), at the 64x48 camera
+SH_JCFG = JConfig(splat_capacity=1 << 17, chunk=256, kernel_precision="f32",
+                  use_sh_precompute=False)
+SH_CFG = SplatConfig(use_sh_precompute=False)
+SMALL_HW = (48, 64)
 SH_BAND = 3
 
 # Tolerances, after 1 and after 3 steps, each ~5-20x what these inputs
@@ -59,12 +65,12 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """The fixture scene with dead slots, a uint8 target rendered from it,
-    and a perturbed starting state (colour, opacity, SH bands 1-3)."""
+def _make_setup(cam):
+    """The fixture scene with dead slots, a uint8 target rendered from it
+    by ``cam``, and a perturbed starting state (colour, opacity, SH bands
+    1-3)."""
     scene = fx.test_scene(opacity_presigmoid=True, capacity=16)
-    cam, pose = fx.test_camera(), fx.test_camera_T_world()
+    pose = fx.test_camera_T_world()
     image = jax.jit(lambda params: jrasterize(
         params, scene.alive, pose, cam, near_thresh=JCFG.near_thresh,
         far_thresh=JCFG.far_thresh, cull_mask_padding=JCFG.cull_mask_padding,
@@ -84,19 +90,30 @@ def setup():
             np.asarray(pose), backgrounds)
 
 
-def _jax_step(state, gt, K, pose, bg):
+@pytest.fixture(scope="module")
+def setup():
+    return _make_setup(fx.test_camera())
+
+
+@pytest.fixture(scope="module")
+def small_setup():
+    """The same at 64x48, for the per-pixel SH path."""
+    return _make_setup(_small_camera())
+
+
+def _jax_step(state, gt, K, pose, bg, config=JCFG, hw=HW):
     s, info = jt.train_step(
         jax.tree_util.tree_map(jnp.asarray, state), jnp.asarray(gt),
-        jnp.asarray(K), jnp.asarray(pose), jnp.asarray(bg), config=JCFG,
-        camera_hw=HW, n_sh_band=SH_BAND, use_background=True,
+        jnp.asarray(K), jnp.asarray(pose), jnp.asarray(bg), config=config,
+        camera_hw=hw, n_sh_band=SH_BAND, use_background=True,
     )
     return _np(s), _np(info)
 
 
-def _port_step(state, gt, K, pose, bg):
+def _port_step(state, gt, K, pose, bg, config=CFG, hw=HW):
     return trainer.train_step(
         state, torch.tensor(gt), torch.tensor(K), torch.tensor(pose),
-        torch.tensor(bg), config=CFG, camera_hw=HW, n_sh_band=SH_BAND)
+        torch.tensor(bg), config=config, camera_hw=hw, n_sh_band=SH_BAND)
 
 
 def _assert_states_agree(got, want):
@@ -188,3 +205,30 @@ def test_eval_step_matches_jax(setup):
     np.testing.assert_allclose(img.numpy(), np.asarray(jimg), rtol=0, atol=1e-5)
     np.testing.assert_allclose([float(psnr), float(ssim)], [float(jpsnr), float(jssim)],
                                rtol=LOSS_RTOL)
+
+
+def test_per_pixel_sh_train_steps_match_jax(small_setup):
+    """1 and then 3 steps with use_sh_precompute=False (B3/B4's plain
+    versions) at SH band 3 against the JAX per-pixel SH train_step: loss,
+    PSNR, every parameter, the Adam state and the accumulators."""
+    jstate, gt, K, pose, backgrounds = small_setup
+    tstate = convert.train_state_from_numpy(jstate, "cpu")
+    for i, bg in enumerate(backgrounds):
+        jstate, jinfo = _jax_step(jstate, gt, K, pose, bg, SH_JCFG, SMALL_HW)
+        tstate, tinfo = _port_step(tstate, gt, K, pose, bg, SH_CFG, SMALL_HW)
+        np.testing.assert_allclose(float(tinfo["loss"]), jinfo["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tinfo["psnr"]), jinfo["psnr"], rtol=LOSS_RTOL)
+        assert tinfo["num_visible"] == int(jinfo["num_visible"]) > 0
+        if i in (0, 2):
+            _assert_states_agree(tstate, jstate)
+    assert int(tstate.opt_state.count) == 3
+    assert float(tstate.opt_state.mu["sh"].abs().max()) > 0
+
+
+def test_sh_band_for_iteration_matches_jax():
+    for kw in (dict(), dict(max_sh_band=0), dict(max_sh_band=2, add_sh_band_interval=300)):
+        jcfg, cfg = JConfig(**kw), SplatConfig(**kw)
+        for it in (0, 1, 299, 300, 999, 1000, 2500, 3000, 7000):
+            assert trainer.sh_band_for_iteration(cfg, it) == jt.sh_band_for_iteration(jcfg, it)
+    assert [trainer.sh_band_for_iteration(SplatConfig(), i) for i in (0, 1000, 2000, 9000)] == [
+        0, 1, 2, 3]
