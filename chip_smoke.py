@@ -15,7 +15,10 @@ counters, that each went through its kernels:
   scene, cycling through the 4 views (kernels B1, B2), checked for finite
   parameters, the densification counts and a falling loss on every view;
 - training, per-pixel SH: 8 steps of the same with
-  SplatConfig(use_sh_precompute=False) (kernels B3, B4).
+  SplatConfig(use_sh_precompute=False) (kernels B3, B4);
+- the TPU probes E1-E3 (gaussian_splatting_torch/experiments): each
+  probe's full sweep, every point's kernel against its plain version,
+  with kernel, plain and library-call times and the bound.
 
 It times the kernels against their plain versions, works out each kernel's
 bound (the least time the card could take for the same work), and
@@ -278,20 +281,6 @@ def compare_sh(label, sh_in):
     return img_err
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn over reps launches, after one warm-up."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def host_ms(fn, reps):
     """Median host time of fn (ending in a synchronize) after one warm-up."""
     import torch
@@ -307,16 +296,17 @@ def host_ms(fn, reps):
     return statistics.median(times)
 
 
-def time_kernel(label, kern, plain, args, smi, kernel_reps=20):
-    """Kernel and plain version in the order plain, kernel, kernel, plain
-    (CUDA events); returns (kernel ms, plain ms), each the mean of two."""
-    p1 = cuda_ms(lambda: plain(*args), 3)
-    k1 = cuda_ms(lambda: kern(*args), kernel_reps)
-    k2 = cuda_ms(lambda: kern(*args), kernel_reps)
-    p2 = cuda_ms(lambda: plain(*args), 3)
-    print(f"[time] {label}: kernel {k1:.4f} / {k2:.4f} ms, plain "
-          f"{p1:.3f} / {p2:.3f} ms (CUDA events; {smi})")
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def time_kernel(label, kern, plain, args, smi):
+    """Kernel and plain version on ``gaussian_splatting_torch.timing``'s
+    clock, in the order plain, kernel, kernel, plain; returns (kernel ms,
+    plain ms), each the mean of two."""
+    from gaussian_splatting_torch import timing
+
+    ms, plain_ms, _ = timing.compare(timing.Timer(DEVICE), lambda: kern(*args),
+                                     lambda: plain(*args))
+    print(f"[time] {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+          f"(CUDA events, cold L2; {smi})")
+    return ms, plain_ms
 
 
 def cotangent(raw, seed):
@@ -609,6 +599,70 @@ def training_phase(setup, cfg, steps, tag, kernels):
     return launches, median_ms
 
 
+# the TPU probes: launch counter, name, source, the TPU kernel it replaces
+# and the sweep point that stands for it in the kernels line
+PROBES = (
+    ("permute_probe", "permute_probe (E1, group-local permutation)",
+     "gaussian_splatting_torch/csrc/probes/permute_probe.cu",
+     "experiments/permute_probe.py:34", "G=1024"),
+    ("scan_probe", "scan_probe (E2, segmented exclusive prefix sum)",
+     "gaussian_splatting_torch/csrc/probes/cumsum_scan.cu",
+     "experiments/cumsum_bench.py:30", "chunk=256"),
+    ("place_probe", "place_probe (E3, block placement at row offsets)",
+     "gaussian_splatting_torch/csrc/probes/dma_scatter.cu",
+     "experiments/dma_scatter_bench.py:34", "rows_blk=512 nsub=16"),
+)
+
+
+def run_probes(smi):
+    """Every probe's full sweep on the card (E1 4 points, E2 2, E3 8): each
+    point's kernel against its plain version (E1 and E3 bitwise, E2 within
+    cumsum_bench.SCAN_TOL), the kernel, plain and library-call times, and
+    the bound.  Returns ({counter: the representative point}, launches)."""
+    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch.experiments import (
+        cumsum_bench,
+        dma_scatter_bench,
+        permute_probe,
+        sort_line,
+    )
+
+    modules = {"permute_probe": permute_probe, "scan_probe": cumsum_bench,
+               "place_probe": dma_scatter_bench}
+    agreement = {"permute_probe": "bitwise",
+                 "scan_probe": f"tol {cumsum_bench.SCAN_TOL}",
+                 "place_probe": "bitwise"}
+    _build.LAUNCHES.clear()
+    sweeps, failed = {}, []
+    for key, mod in modules.items():
+        points, info = mod.sweep(DEVICE)
+        for p in points:
+            p["bound_ms"], p["bound_by"] = bound(p["bytes"], p["ops"])
+            print(f"[probe] {key} {p['point']}: kernel {p['ms']:.4f} ms, plain "
+                  f"{p['plain_ms']:.3f} ms, library {p['library_ms']:.4f} ms "
+                  f"({info['clock']}; {smi}); bound {p['bound_ms']:.4f} ms by "
+                  f"{p['bound_by']} ({p['bytes']} bytes, {p['ops']} float32 "
+                  f"operations), {p['bound_ms'] / p['ms']:.1%} of it; "
+                  f"max|kernel - plain| {p['max_abs_err']:.3e} "
+                  f"({agreement[key]}): {'OK' if p['ok'] else 'MISMATCH'}")
+            if not p["ok"]:
+                failed.append(f"{key} {p['point']}")
+        if "sort" in info:
+            print(f"[probe] {key}: {sort_line(info['sort'])} ({info['clock']})")
+        sweeps[key] = points
+    launches = dict(_build.LAUNCHES)
+    print(f"[probe] launches {launches}")
+    if failed:
+        raise AssertionError(f"probe kernels disagree with their plain versions: {failed}")
+    if set(launches) != set(modules) or any(
+            launches[k] < len(sweeps[k]) for k in modules):
+        raise AssertionError(f"expected every probe kernel at each point, got {launches}")
+    chosen = {}
+    for key, _, _, _, point in PROBES:
+        chosen[key] = next(p for p in sweeps[key] if p["point"] == point)
+    return chosen, launches
+
+
 # device kernels named in the step profile, by a part of their symbol
 KERNEL_PARTS = (
     ("render_fwd_kernel", "B1 (DC forward kernel)"),
@@ -782,13 +836,16 @@ def main():
     # 2. build
     with phase("build"):
         t0 = time.perf_counter()
-        so = _build.build()
-        print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s "
+        libraries = _build.build("kernels", "probes")
+        print(f"[build] {', '.join(so.name for so in libraries)} in "
+              f"{time.perf_counter() - t0:.1f} s "
               f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped'})")
-        for line in so.with_suffix(".log").read_text().splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
-        _build.library()
+        for so in libraries:
+            for line in so.with_suffix(".log").read_text().splitlines():
+                if "entry function" in line or "registers" in line or "spill" in line:
+                    print(f"[build]   {line.strip()}")
+        _build.library("kernels")
+        _build.library("probes")
 
     from gaussian_splatting_torch.config import SplatConfig
     from gaussian_splatting_torch.ops.render import render_bwd_cuda, render_bwd_plain
@@ -946,6 +1003,10 @@ def main():
                                              render_sh_bwd_plain, s_sh_bwd, smi)
         bounds = kernel_bounds(s_dc, s_dep, s_grid, s_sh)
 
+    # 10. the TPU probes E1-E3, full sweeps
+    with phase("probes"):
+        probes, probe_launches = run_probes(smi)
+
     def entry(key, name, source, replaces, launches, err, **extra):
         ms, plain_ms = times[key]
         bound_ms, bound_by = bounds[key]
@@ -979,11 +1040,19 @@ def main():
               sh_train_launches["render_sh_bwd"], b4_abs,
               max_rel_err_per_row=b4_rel, run_to_run_spread=b4_spread),
     ]
+    for key, label, source, replaces, point in PROBES:
+        p = probes[key]
+        kernels.append(dict(
+            name=label, route="cuda", source=source, replaces=replaces,
+            launches=probe_launches[key], max_abs_err=p["max_abs_err"], ms=p["ms"],
+            plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+            library_ms=p["library_ms"], point=point))
     print(f"[time] training step {step_ms:.3f} ms, per-pixel SH training step "
           f"{sh_step_ms:.3f} ms (host clock; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
