@@ -59,11 +59,11 @@ GOLDEN_TOL = 1e-5
 DEPTH_GOLDEN_TOL = 1e-4
 # B2 and B4 against their plain versions, per gradient row relative to that
 # row's largest magnitude: both sum per-pixel terms in another order (the
-# kernel per warp and block and then by atomics, the plain walk by parallel
-# scans, batched products and index_add_), and D = E - prefix cancels in
-# near-saturated pixels, where 1 / (1 - alpha) reaches 1e4.  B2 measured on
-# an H100 at 1.6e-6 (fixture) and 9.7e-7 (garden view), with a run-to-run
-# spread of the atomics of up to 9.4e-7: the bound leaves ~60x of that
+# kernel per splat over a warp's pixels, then over the eight warps and then
+# by atomics, the plain walk by parallel scans, batched products and
+# index_add_), and D = E - prefix cancels in near-saturated pixels, where
+# 1 / (1 - alpha) reaches 1e4.  The two-phase B2 and B4 measured on an H100
+# at 3.8e-6 and 1.8e-6 on the garden view: the bound leaves ~25x of that
 BWD_REL_TOL = 1e-4
 # zero higher-band coefficients through B3 against the DC path through B1
 SH_DC_TOL = 1e-6
@@ -383,6 +383,35 @@ def pair_counts(feat, lay, x_tiles, clamp=False):
     return evaluated, composited
 
 
+def warp_counts(feat, lay, x_tiles, rnd=32):
+    """What the backward kernels' reductions see, counted with the plain
+    walk (the backward's clamped alpha): (warp-splat steps, of them with a
+    hit, pixel-rounds with a hit).  A warp-splat step is one splat of a
+    tile's list against one warp of 32 pixels of which at least one still
+    has T >= T_EPS; it has a hit where one of them composites the splat.
+    The first versions of B2 and B4 reduced each step with a hit over the
+    warp by shuffles.  A pixel-round with a hit is a pixel that composites
+    at least one of a round of ``rnd`` splats: the steps of the two-phase
+    kernels' phase B at rounds of 32."""
+    import torch
+
+    from gaussian_splatting_torch.ops import render as tr
+
+    n_tiles = lay.tile_starts.numel() - 1
+    T = torch.ones(n_tiles, 256, device=feat.device)
+    steps = hit_steps = pixel_rounds = 0
+    for tiles, gid, ok in tr._tile_chunks(lay.gaussian_idx, lay.tile_starts, rnd):
+        alpha = tr._alpha_chunk(feat, gid, tiles, x_tiles)
+        at, prod, active, _ = tr._composite_chunk(T[tiles], alpha, ok, clamp=True)
+        live = active & ok[:, None, :]
+        hit = active & (at > 0)
+        steps += int(live.unflatten(1, (8, 32)).any(dim=2).sum())
+        hit_steps += int(hit.unflatten(1, (8, 32)).any(dim=2).sum())
+        pixel_rounds += int(hit.any(dim=2).sum())
+        T[tiles] = tr._t_after(prod, active)
+    return steps, hit_steps, pixel_rounds
+
+
 def depth_pairs(dfeat, dlay, x_tiles, alpha_threshold):
     """Splat-pixel pairs B5 evaluates: up to and including each pixel's
     crossing, every pair where nothing crosses."""
@@ -453,6 +482,12 @@ def kernel_bounds(s_dc, s_dep, s_grid, s_sh):
     print(f"[bound] garden view 0: B1 {ev} pairs evaluated, {co} composited; "
           f"B2 {ev_b} / {co_b}; B3 {sev} / {sco}; B4 {sev_b} / {sco_b}; "
           f"B5 {dev} evaluated")
+    for name, (f, la, xt) in (("B2", (feat, lay, s_grid.x_tiles)),
+                              ("B4", (sfeat, slay, x_tiles))):
+        steps, hit_steps, rounds = warp_counts(f, la, xt)
+        print(f"[bound] garden view 0, {name}'s reductions: {steps} warp-splat "
+              f"steps, {hit_steps} of them with a hit; {rounds} pixel-rounds "
+              f"(32 splats) with a hit")
     out = {}
     for name, (nbytes, ops) in work.items():
         out[name] = bound(nbytes, ops)

@@ -16,80 +16,87 @@
 // rows are (g_c * basis_k) * w.  The basis gets no gradient, so in this path
 // a gaussian's centre gets its gradient only through u, v and the conic.
 //
-// Design: B2's skeleton, a template on n_sh (4, 9, 16).  One block per
-// tile, one thread per pixel; 256 splats' geometry and coefficients are
-// gathered into dynamic shared memory (90 KB at n_sh = 16 with the partial
-// sums below, past the 48 KB of static shared memory; the launcher raises
-// the limit with cudaFuncSetAttribute).  Each pixel has 6 + 3 * n_sh terms
-// per splat (54 at n_sh = 16), against B2's 9.  B2's per-row shuffle
-// reduction would cost 5 shuffles per row, 270 per warp and splat here; this
-// kernel reduces the rows over the warp by recursive halving instead (a
-// reduce-scatter: at each of 5 steps a lane sends half of its rows to its
-// partner and keeps the other half), 31 shuffles per 32 rows, after which
-// lane l holds the warp sum of rows l and 32 + l.  Staging the weights in
-// shared memory and reducing the coefficient rows as a (3 * n_sh, 256) x
-// (256, splats) product was the other choice; it costs the same whatever the
-// pixels hit, where the shuffles are skipped for a splat that no lane of the
-// warp hit (__any_sync).  The eight warp sums go to shared memory, and after
-// a round of kRound splats the block adds them up and issues one atomicAdd
-// per (splat, tile, row), skipping zero sums, as B2 does.
+// What bounded the first version on the H100 (NVIDIA H100 80GB HBM3,
+// 700 W, garden view 0 at 1296x840, n_sh = 16, bwd_bench.py): each warp
+// summed its pixels' 54 rows per splat by a reduce-scatter of 62 shuffles,
+// after contracting the colour from 48 coefficients read one float at a
+// time; shuffles and shared-memory accesses issue through one pipe of the
+// SM.  Compiled without the reduce-scatter it took 1.538 ms instead of
+// 3.165 ms, without its atomics 3.112 ms.
 //
-// What bounds it on the H100: per splat-pixel pair that a pixel reaches
-// before T < T_EPS, B2's ~60 float32 operations with the colour terms
-// replaced by the contraction (2 * 3 * n_sh), A (2 * 3), and the
-// coefficient rows (2 * 3 * n_sh), ~250 at n_sh = 16, against 67 TFLOP/s;
-// plus 62 shuffles per warp and splat and two barriers per round.  Device
-// memory traffic is small next to that (features, basis, raw output and
-// cotangent read once, the gradient written by atomics).
+// Design: B2's two phases (render_bwd.cu, common.cuh), a template on n_sh
+// (4, 9, 16).  One block per tile, one thread per pixel, whose basis stays
+// in registers for phase A.  The block gathers kBatch splats at a time:
+// their geometry, and their 3 * n_sh coefficients contiguous per splat
+// (padded to a multiple of 4), so that phase A contracts a splat's colour
+// from 16-byte broadcast loads, in fused multiply-adds.  Phase B reads each
+// pixel's cotangent and basis from shared memory and sums the coefficient
+// rows as sum_p (w * g_c) * basis_k: 3 * n_sh fused multiply-adds per lane
+// and pixel against 2 + n_sh / 4 loads.  Everything lives in dynamic shared
+// memory (the launcher raises the limit with cudaFuncSetAttribute).
+//
+// What bounds it now: registers.  Phase B's 7 + 3 * n_sh sums and phase A's
+// basis take 127 of the 128 registers that two blocks (16 warps) per SM
+// allow, and the walk is latency-bound at that occupancy; phase B issues
+// ~100 instructions per warp and pixel-round with a hit (5.61M of them), 48
+// of them the coefficient rows' fused multiply-adds, near the SM's issue
+// rate.  Compiled without phase B the first two-phase version took 1.549 of
+// its 2.302 ms, without the rows' atomics 2.124.  Rounds of 16 splats took
+// 2.282 ms against 2.394 at 32 before phase B took two pixels a step.
 #include "common.cuh"
 
 namespace gs {
 namespace {
 
-constexpr int kRound = 16;  // splats per block-wide reduction round
+constexpr int kBatch = 64;  // splats gathered at a time (a multiple of kRound)
+
+constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
 template <int NSH>
 struct ShBwd {
-  static constexpr int kCoeffRows = 3 * NSH;
-  static constexpr int kRows = kShCoeff0 + kCoeffRows;  // rows of grad_feat
-  static constexpr int kRowsPad = (kRows + kWarpSize - 1) / kWarpSize * kWarpSize;
-  static constexpr int kSmemBytes =
-      kPixelsPerTile * (int(sizeof(SplatGeom)) + kCoeffRows * int(sizeof(float)) +
-                        int(sizeof(int))) +
-      kWarps * kRound * kRowsPad * int(sizeof(float));
+  static constexpr int kCoeff = 3 * NSH;
+  static constexpr int kCoeffPad = round4(kCoeff);  // a splat's stride
+  static constexpr int kBasisPad = round4(NSH);     // a pixel's stride
+  static constexpr int kSums = kGeomSums + kCoeff;
+  static_assert(kSums * kRound <= kStageFloats, "the sums fit a warp's buffer");
+  // dynamic shared memory, in bytes: the warps' staging buffers, per pixel
+  // its colour cotangent and basis, per batch splat its coefficients,
+  // geometry (two float4) and gaussian id
+  static constexpr int kOffG = kWarps * kStageFloats * int(sizeof(float));
+  static constexpr int kOffBasis = kOffG + kPixelsPerTile * int(sizeof(float4));
+  static constexpr int kOffCoeff =
+      kOffBasis + kPixelsPerTile * kBasisPad * int(sizeof(float));
+  static constexpr int kOffGeom = kOffCoeff + kBatch * kCoeffPad * int(sizeof(float));
+  static constexpr int kOffGid = kOffGeom + 2 * kBatch * int(sizeof(float4));
+  static constexpr int kSmemBytes = kOffGid + kBatch * int(sizeof(int));
 };
 
-// One step of the warp's recursive halving: lanes with the bit HALF set
-// keep the upper half of each group of 2 * HALF rows and send the lower
-// half to their partner, the others the reverse.
-template <int HALF, int R>
-__device__ __forceinline__ void halve(float (&v)[R], int lane) {
-  const bool upper = (lane & HALF) != 0;
+// The colour of a splat at a pixel, channel by channel: sum_k coeff[c * NSH
+// + k] * basis[k] in order of k, as sh_colour (common.cuh) sums it, here in
+// fused multiply-adds (it only feeds A); coeff is the splat's contiguous,
+// 16-byte aligned row.
+template <int NSH>
+__device__ __forceinline__ void sh_colour_packed(const float* coeff,
+                                                 const float (&basis)[NSH],
+                                                 float (&col)[3]) {
 #pragma unroll
-  for (int m = 0; m < R; m += kWarpSize) {
+  for (int r4 = 0; r4 < 3 * NSH; r4 += 4) {
+    const float4 c4 = *reinterpret_cast<const float4*>(coeff + r4);
+    const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      const float send = upper ? v[m + i] : v[m + i + HALF];
-      const float keep = upper ? v[m + i + HALF] : v[m + i];
-      v[m + i] = keep + __shfl_xor_sync(kFullMask, send, HALF);
+    for (int e = 0; e < 4; ++e) {
+      const int r = r4 + e;
+      if (r < 3 * NSH) {
+        const int ch = r / NSH, k = r % NSH;
+        col[ch] = k == 0 ? cv[e] * basis[k] : fmaf(cv[e], basis[k], col[ch]);
+      }
     }
   }
 }
 
-// Sums v over the warp; afterwards v[32 * m] holds, in lane l, the warp sum
-// of row 32 * m + l.  R is a multiple of 32.  Each step is a template, so
-// every index is a constant and v stays in registers.
-template <int R>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[R], int lane) {
-  halve<16>(v, lane);
-  halve<8>(v, lane);
-  halve<4>(v, lane);
-  halve<2>(v, lane);
-  halve<1>(v, lane);
-}
-
+// two blocks per SM: at most 128 registers a thread
 template <int NSH>
-__global__ void __launch_bounds__(kPixelsPerTile)
+__global__ void __launch_bounds__(kPixelsPerTile, 2)
     render_sh_bwd_kernel(const float* __restrict__ feat, int n,
                          const float* __restrict__ basis,
                          const int* __restrict__ gaussian_idx,
@@ -98,13 +105,16 @@ __global__ void __launch_bounds__(kPixelsPerTile)
                          const float* __restrict__ grad_raw,
                          float* __restrict__ grad_feat) {
   using L = ShBwd<NSH>;
-  extern __shared__ float s_mem[];
-  SplatGeom* s_geom = reinterpret_cast<SplatGeom*>(s_mem);
-  // s_coeff[r * kPixelsPerTile + j]: coefficient row r of batch splat j
-  float* s_coeff = reinterpret_cast<float*>(s_geom + kPixelsPerTile);
-  int* s_gid = reinterpret_cast<int*>(s_coeff + L::kCoeffRows * kPixelsPerTile);
-  // s_part[(warp * kRound + jj) * kRowsPad + row]: a warp's sum for splat jj
-  float* s_part = reinterpret_cast<float*>(s_gid + kPixelsPerTile);
+  extern __shared__ float4 s_mem[];
+  char* smem = reinterpret_cast<char*>(s_mem);
+  float* s_stage = reinterpret_cast<float*>(smem);
+  float4* s_g = reinterpret_cast<float4*>(smem + L::kOffG);
+  // s_basis[p * kBasisPad + k]: basis k at pixel p
+  float* s_basis = reinterpret_cast<float*>(smem + L::kOffBasis);
+  // s_coeff[j * kCoeffPad + r]: coefficient row r of batch splat j
+  float* s_coeff = reinterpret_cast<float*>(smem + L::kOffCoeff);
+  float4* s_geom = reinterpret_cast<float4*>(smem + L::kOffGeom);
+  int* s_gid = reinterpret_cast<int*>(smem + L::kOffGid);
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -116,115 +126,129 @@ __global__ void __launch_bounds__(kPixelsPerTile)
   const float vp = float(p / kTilePx) - kHalfTile;
   const int lo = tile_starts[tile];
   const int hi = tile_starts[tile + 1];
+  // this warp's buffer: (q, w) pairs in phase A, its sums after phase B
+  float2* stage = reinterpret_cast<float2*>(s_stage + warp * kStageFloats);
+  float* part = s_stage + warp * kStageFloats;
+  // phase B: pixel i of the warp lies in tile row 2 warp + i / 16
+  const float vp_row0 = float(2 * warp) - kHalfTile;
+  const float vp_row1 = float(2 * warp + 1) - kHalfTile;
 
   const int o = tile * kPixelsPerTile + p;
   float b[NSH];
 #pragma unroll
-  for (int k = 0; k < NSH; ++k) b[k] = basis[k * n_pix + o];
+  for (int k = 0; k < NSH; ++k) {
+    b[k] = basis[k * n_pix + o];
+    s_basis[p * L::kBasisPad + k] = b[k];
+  }
   const float g_r = grad_raw[0 * n_pix + o];
   const float g_g = grad_raw[1 * n_pix + o];
   const float g_b = grad_raw[2 * n_pix + o];
   const float g_t = grad_raw[3 * n_pix + o];
   const float e = raw[0 * n_pix + o] * g_r + raw[1 * n_pix + o] * g_g +
                   raw[2 * n_pix + o] * g_b + g_t * raw[3 * n_pix + o];
+  // s_g[p]: pixel p's colour cotangent and its column up
+  s_g[p] = make_float4(g_r, g_g, g_b, up);
 
   float T = 1.0f;
   float pg = 0.0f;
   bool done = false;
-  for (int base = lo; base < hi; base += kPixelsPerTile) {
+  for (int base = lo; base < hi; base += kBatch) {
     // also the barrier that keeps the previous batch alive until every
     // pixel has finished with it
     if (__syncthreads_count(!done) == 0) break;
-    const int i = base + p;
-    if (i < hi) {
-      const int g = gaussian_idx[i];
+    const int count = min(kBatch, hi - base);
+    if (p < count) {
+      const int g = gaussian_idx[base + p];
       s_gid[p] = g;
-      s_geom[p] = load_geom(feat, n, g, ox, oy);
-#pragma unroll
-      for (int r = 0; r < L::kCoeffRows; ++r) {
-        s_coeff[r * kPixelsPerTile + p] = feat[(kShCoeff0 + r) * n + g];
-      }
+      store_geom(s_geom + 2 * p, load_geom(feat, n, g, ox, oy));
+    }
+    for (int x = p; x < count * L::kCoeff; x += kPixelsPerTile) {
+      const int j = x / L::kCoeff;
+      const int r = x - j * L::kCoeff;
+      s_coeff[j * L::kCoeffPad + r] = feat[(kShCoeff0 + r) * n + gaussian_idx[base + j]];
     }
     __syncthreads();
-    const int count = min(kPixelsPerTile, hi - base);
     for (int r0 = 0; r0 < count; r0 += kRound) {
+      // A: the walk; q and w are zero unless the splat composites here
+      bool hit_any = false;
       for (int jj = 0; jj < kRound; ++jj) {
         const int j = r0 + jj;
-        // this pixel's terms for splat j; zero unless the splat composites
-        // here, so a lane that did not hit adds exact zeros
-        float q = 0.0f, rq = 0.0f, w = 0.0f, sop = 0.0f;
-        float du = 0.0f, dv = 0.0f, mh = 0.0f, sa = 0.0f, sb = 0.0f, sc = 0.0f;
-        bool hit = false;
+        float q = 0.0f, w = 0.0f;
         if (j < count && !done) {
           if (T < kTEps) {
             done = true;
           } else {
-            const SplatGeom& s = s_geom[j];
-            const SplatPixel t = splat_pixel(s, up, vp);
+            const SplatPixel t = splat_pixel(read_geom(s_geom + 2 * j), up, vp);
             if (t.alpha >= kAlphaSkip) {
-              hit = true;
+              hit_any = true;
               const float at = fminf(t.alpha, kAlphaClamp);
               w = at * T;
-              const float* c = s_coeff + j;
-              const float col_r = sh_colour<NSH>(c, b);
-              const float col_g = sh_colour<NSH>(c + NSH * kPixelsPerTile, b);
-              const float col_b = sh_colour<NSH>(c + 2 * NSH * kPixelsPerTile, b);
-              const float A = g_r * col_r + g_g * col_g + g_b * col_b;
+              float col[3];
+              sh_colour_packed<NSH>(s_coeff + j * L::kCoeffPad, b, col);
+              const float A = g_r * col[0] + g_g * col[1] + g_b * col[2];
               pg += A * w;
               const float d = e - pg;
               const float roma = 1.0f / (1.0f - at);
               q = at * (A * T - d * roma);
-              rq = q * s.rdet;
-              du = t.du, dv = t.dv, mh = t.mh;
-              sop = s.op, sa = s.a, sb = s.b, sc = s.c;
               T *= 1.0f - at;
             }
           }
         }
-        float* part = s_part + (warp * kRound + jj) * L::kRowsPad + lane;
-        // warp-uniform: every lane runs the loops above the same number of
-        // times; with no hit in the warp every row sums to zero
-        if (__any_sync(kFullMask, hit)) {
-          float v[L::kRowsPad];
-          v[0] = rq * (sc * du - sb * dv);
-          v[1] = rq * (sa * dv - sb * du);
-          v[2] = q / fmaxf(sop, 1e-30f);
-          v[3] = (-0.5f * rq) * (dv * dv - sc * mh);
-          v[4] = rq * (du * dv - sb * mh);
-          v[5] = (-0.5f * rq) * (du * du - sa * mh);
-#pragma unroll
-          for (int k = 0; k < NSH; ++k) {
-            v[kShCoeff0 + k] = (g_r * b[k]) * w;
-            v[kShCoeff0 + NSH + k] = (g_g * b[k]) * w;
-            v[kShCoeff0 + 2 * NSH + k] = (g_b * b[k]) * w;
-          }
-#pragma unroll
-          for (int k = L::kRows; k < L::kRowsPad; ++k) v[k] = 0.0f;
-          warp_reduce_scatter(v, lane);
-#pragma unroll
-          for (int m = 0; m < L::kRowsPad; m += kWarpSize) part[m] = v[m];
-        } else {
-#pragma unroll
-          for (int m = 0; m < L::kRowsPad; m += kWarpSize) part[m] = 0.0f;
-        }
+        stage[stage_slot(jj, lane)] = make_float2(q, w);
       }
-      __syncthreads();
-      for (int x = p; x < kRound * L::kRows; x += kPixelsPerTile) {
-        const int jj = x / L::kRows;
-        const int k = x % L::kRows;
-        const int j = r0 + jj;
-        if (j < count) {
-          float sum = 0.0f;
+      // B: lane jj sums splat r0 + jj over the warp's pixels that
+      // composited anything; past the batch's end it reads zeros
+      const unsigned mask = __ballot_sync(kFullMask, hit_any);
+      __syncwarp();
+      const int jj = lane;
+      const SplatGeom s = read_geom(s_geom + 2 * (r0 + jj));
+      float acc[L::kSums];
 #pragma unroll
-          for (int wp = 0; wp < kWarps; ++wp) {
-            sum += s_part[(wp * kRound + jj) * L::kRowsPad + k];
-          }
-          // adding zero changes nothing; NaN still goes through
-          if (sum != 0.0f) atomicAdd(&grad_feat[k * n + s_gid[j]], sum);
+      for (int k = 0; k < L::kSums; ++k) acc[k] = 0.0f;
+      auto add_pixel = [&](int i, float2 qw, float4 gp) {
+        const float4* bp = reinterpret_cast<const float4*>(
+            s_basis + (warp * kWarpSize + i) * L::kBasisPad);
+        float4 b4[L::kBasisPad / 4];
+#pragma unroll
+        for (int k4 = 0; k4 < L::kBasisPad / 4; ++k4) b4[k4] = bp[k4];
+        if (qw.x != 0.0f) {
+          add_geom_sums(acc, s, qw.x, gp.w, i < kTilePx ? vp_row0 : vp_row1);
         }
+        const float wg[3] = {qw.y * gp.x, qw.y * gp.y, qw.y * gp.z};
+#pragma unroll
+        for (int k = 0; k < NSH; ++k) {
+          const float4 v = b4[k / 4];
+          const float bk = k % 4 == 0 ? v.x : k % 4 == 1 ? v.y : k % 4 == 2 ? v.z : v.w;
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            float& a = acc[kGeomSums + ch * NSH + k];
+            a = fmaf(wg[ch], bk, a);
+          }
+        }
+      };
+      // two pixels at a time, both pixels' pairs and cotangents loaded first
+      for (unsigned m = mask; m != 0;) {
+        const int i0 = take_pixel(m);
+        const int i1 = take_pixel(m);
+        const float2 qw0 = stage[stage_slot(jj, i0)];
+        const float4 gp0 = s_g[warp * kWarpSize + i0];
+        float2 qw1 = make_float2(0.0f, 0.0f);
+        float4 gp1 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (i1 >= 0) {
+          qw1 = stage[stage_slot(jj, i1)];
+          gp1 = s_g[warp * kWarpSize + i1];
+        }
+        add_pixel(i0, qw0, gp0);
+        if (i1 >= 0) add_pixel(i1, qw1, gp1);
       }
-      // s_part is rewritten by the next round
+      // every lane has read its pairs: the sums go over the buffer
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < L::kSums; ++k) part[k * kRound + jj] = acc[k];
       __syncthreads();
+      add_round_rows<L::kCoeff>(s_stage, s_geom, s_gid, r0, count, n, grad_feat);
+      // the sums are read before the next round stages over them
+      if (__syncthreads_count(!(done || T < kTEps)) == 0) break;
     }
     done = done || T < kTEps;
   }

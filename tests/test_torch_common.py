@@ -83,13 +83,13 @@ def test_scene_create_matches_jax():
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, render_torch and chip_smoke import without
-    pulling in jax."""
+    """Every module of the port, render_torch, chip_smoke and bwd_bench
+    import without pulling in jax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gaussian_splatting_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "for m in mods + ['render_torch', 'chip_smoke']:\n"
+        "for m in mods + ['render_torch', 'chip_smoke', 'bwd_bench']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('gaussian_splatting_tpu'))\n"
