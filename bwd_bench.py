@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Time the backward kernels B2 and B4 built from several source trees, in
-turns, on one card.
+"""Time the rasterizer kernels B1, B2, B3 and B4 built from several source
+trees, in turns, on one card.
 
 Each argument is a directory holding a copy of
-``gaussian_splatting_torch/csrc`` (or a part of it: ``common.cuh``,
-``render_bwd.cu``, ``render_sh_bwd.cu``) in which the backward kernels may
-have been edited; with none, the package's own sources are timed.  Every
-directory is compiled with the package's nvcc flags into a library of its
-own, all at once; then ``gs_render_bwd`` (B2) and ``gs_render_sh_bwd`` (B4)
-of each run on the inputs of ``chip_smoke.py``'s garden view 0 (1296x840, a
-seeded cotangent; B4 at n_sh 16), are held per gradient row against the
-plain PyTorch versions, and are timed on ``gaussian_splatting_torch.timing``'s
-clock in the order first, ..., last, last, ..., first.
+``gaussian_splatting_torch/csrc`` (or a part of it: ``common.cuh`` and the
+``render_*.cu`` files) in which the kernels may have been edited; with none,
+the package's own sources are timed.  Every directory is compiled with the
+package's nvcc flags into a library of its own, all at once.  Then each
+kernel of each tree runs on the inputs of ``chip_smoke.py``'s garden view 0
+(1296x840; B3 and B4 at n_sh 16; B2 and B4 with a seeded cotangent) and is
+held against its plain PyTorch version: B1 and B3 on the image and on T
+where T >= T_EPS, B2 and B4 per gradient row relative to the row's max.
+The kernels are timed on ``gaussian_splatting_torch.timing``'s clock in the
+order first, ..., last, last, ..., first.
 
-    python3 bwd_bench.py [DIR ...]
+B1 and B3 are called as their tree defines them: where the library exports
+``gs_pack_fwd_rows``, the timed call packs the feature rows into
+gaussian-major records, orders the tiles (``gs_tile_order``) and walks them
+in that order (the pack and the order are also timed alone); otherwise the
+walk reads the row-major matrix in tile order (the kernels before the
+pack).
+
+    python3 bwd_bench.py [--kernels B1,B3,...] [DIR ...]
 
 Needs one CUDA device and nvcc.  A source tree whose kernels were cut down
 on purpose (to see what a part costs) disagrees with the plain versions:
@@ -30,6 +38,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+KERNELS = ("B1", "B3", "B2", "B4")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# B1 and B3's launchers before the pack: the row-major (rows, n) matrix
+ROW_MAJOR_FWD = {
+    # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, out, stream
+    "gs_render_fwd": (_P, _I, _P, _P, _I, _I, _P, _P),
+    # feat, n, basis, n_sh, gaussian_idx, tile_starts, n_tiles, x_tiles, out,
+    # stream
+    "gs_render_sh_fwd": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _P),
+}
 
 
 def build_tree(src: Path, out_dir: Path):
@@ -67,10 +85,14 @@ def finish_tree(so, jobs, link):
     if proc.returncode != 0:
         raise RuntimeError(f"link failed: {proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    for name in ("gs_render_bwd", "gs_render_sh_bwd"):
-        fn = getattr(lib, name)
-        fn.argtypes = list(_build.SIGNATURES["kernels"][name])
-        fn.restype = ctypes.c_int
+    packed = hasattr(lib, "gs_pack_fwd_rows")
+    sigs = dict(_build.SIGNATURES["kernels"]) if packed else {**_build.SIGNATURES["kernels"],
+                                                           **ROW_MAJOR_FWD}
+    for name, argtypes in sigs.items():
+        if name != "gs_depth_fwd" and hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib, "".join(log)
 
 
@@ -78,7 +100,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", type=Path,
                     help="source directories (default: the package's csrc)")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernels to check and time (default: "
+                         f"{','.join(KERNELS)})")
     args = ap.parse_args(argv)
+    args.kernels = args.kernels.split(",")
+    if not set(args.kernels) <= set(KERNELS):
+        ap.error(f"--kernels takes some of {','.join(KERNELS)}, got {args.kernels}")
 
     import torch
 
@@ -87,8 +115,16 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from gaussian_splatting_torch import _build, timing
-    from gaussian_splatting_torch.ops.render import render_bwd_plain
-    from gaussian_splatting_torch.ops.render_sh import render_sh_bwd_plain
+    from gaussian_splatting_torch.ops import common as cc
+    from gaussian_splatting_torch.ops.render import (
+        packed_stride,
+        render_bwd_plain,
+        render_fwd_plain,
+    )
+    from gaussian_splatting_torch.ops.render_sh import (
+        render_sh_bwd_plain,
+        render_sh_fwd_plain,
+    )
 
     trees = args.trees or [_build.SRC_DIR]
     smi = subprocess.run(
@@ -98,14 +134,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        _build.library("kernels")  # the forward kernels that make B2/B4's inputs
+        if "B2" in args.kernels or "B4" in args.kernels:
+            _build.library("kernels")  # the forward kernels that make B2/B4's inputs
         started = [build_tree(t, Path(tmp)) for t in trees]
         libs = {}
         for tree, job in zip(trees, started):
             lib, log = finish_tree(*job)
             libs[str(tree)] = lib
             for line in log.splitlines():
-                if any(w in line for w in ("entry function", "registers", "spill")):
+                if any(w in line for w in ("entry function", "registers", "spill", "stack")):
                     print(f"[build] {tree}: {line.strip()}")
         print(f"[build] {len(trees)} trees in {time.perf_counter() - t0:.1f} s")
 
@@ -121,54 +158,119 @@ def main(argv=None):
         params = {k: v.detach() for k, v in scene.params().items()}
         s_dc, _, s_grid = cs.kernel_inputs(scene, cam, pose, scene_kw, cs.SH_BAND,
                                            depth_kw)
-        b2_args = cs.bwd_args(s_dc, s_grid, seed=2)
         s_sh = cs.sh_kernel_inputs(params, scene.alive, pose, cam, scene_kw, cs.SH_BAND)
-        b4_args = cs.sh_bwd_args(s_sh, seed=3)
-        want = {"B2": render_bwd_plain(*b2_args), "B4": render_sh_bwd_plain(*b4_args)}
+        # B1, B3: (feat, basis or None, gaussian_idx, tile_starts, x_tiles)
+        fwd_args = {"B1": (s_dc[0], None, s_dc[1].gaussian_idx, s_dc[1].tile_starts,
+                           s_grid.x_tiles),
+                    "B3": (s_sh[0], s_sh[1], s_sh[2].gaussian_idx, s_sh[2].tile_starts,
+                           s_sh[3])}
+        bwd = {"B2": cs.bwd_args(s_dc, s_grid, seed=2) if "B2" in args.kernels else None,
+               "B4": cs.sh_bwd_args(s_sh, seed=3) if "B4" in args.kernels else None}
+        want = {}
+        for kernel in args.kernels:
+            if kernel == "B1":
+                feat, _, gidx, starts, x_tiles = fwd_args[kernel]
+                want[kernel] = render_fwd_plain(feat, gidx, starts, x_tiles)
+            elif kernel == "B3":
+                want[kernel] = render_sh_fwd_plain(*fwd_args[kernel])
+            elif kernel == "B2":
+                want[kernel] = render_bwd_plain(*bwd[kernel])
+            else:
+                want[kernel] = render_sh_bwd_plain(*bwd[kernel])
         for kernel, (feat, lay, x_tiles) in (
                 ("B2", (s_dc[0], s_dc[1], s_grid.x_tiles)),
                 ("B4", (s_sh[0], s_sh[2], s_sh[3]))):
-            steps, hit_steps, rounds = cs.warp_counts(feat, lay, x_tiles)
-            print(f"[count] {kernel}: {steps} warp-splat steps, {hit_steps} with a "
-                  f"hit; {rounds} pixel-rounds (32 splats) with a hit")
+            if kernel in args.kernels:
+                steps, hit_steps, rounds = cs.warp_counts(feat, lay, x_tiles)
+                print(f"[count] {kernel}: {steps} warp-splat steps, {hit_steps} with a "
+                      f"hit; {rounds} pixel-rounds (32 splats) with a hit")
         torch.cuda.synchronize()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def pack(lib, feat):
+            rec = torch.empty(feat.shape[1], packed_stride(feat.shape[0]),
+                              dtype=torch.float32, device=dev)
+            _build.check(lib.gs_pack_fwd_rows(feat.data_ptr(), feat.shape[1],
+                                              feat.shape[0], rec.data_ptr(), stream),
+                         "pack")
+            return rec
+
+        def tile_order(lib, starts):
+            order = torch.empty(starts.numel() - 1, dtype=torch.int32, device=dev)
+            _build.check(lib.gs_tile_order(starts.data_ptr(), starts.numel() - 1,
+                                           order.data_ptr(), stream), "tile order")
+            return order
 
         def call(lib, kernel):
+            if kernel in fwd_args:
+                feat, basis, gidx, starts, x_tiles = fwd_args[kernel]
+                n_tiles = starts.numel() - 1
+                out = torch.empty(4, n_tiles * cc.PIXELS_PER_TILE, dtype=torch.float32,
+                                  device=dev)
+                if hasattr(lib, "gs_pack_fwd_rows"):
+                    lead = (pack(lib, feat).data_ptr(),)
+                    starts_order = (starts.data_ptr(), tile_order(lib, starts).data_ptr())
+                else:
+                    lead = (feat.data_ptr(), feat.shape[1])
+                    starts_order = (starts.data_ptr(),)
+                tail = (gidx.data_ptr(), *starts_order, n_tiles, x_tiles,
+                        out.data_ptr(), stream)
+                if kernel == "B1":
+                    err = lib.gs_render_fwd(*lead, *tail)
+                else:
+                    err = lib.gs_render_sh_fwd(*lead, basis.data_ptr(), basis.shape[0],
+                                               *tail)
+                _build.check(err, kernel)
+                return out
             if kernel == "B2":
-                feat, gidx, starts, x_tiles, raw, cot = b2_args
+                feat, gidx, starts, x_tiles, raw, cot = bwd[kernel]
                 grad = torch.zeros_like(feat)
                 err = lib.gs_render_bwd(
                     feat.data_ptr(), feat.shape[1], gidx.data_ptr(), starts.data_ptr(),
                     starts.numel() - 1, x_tiles, raw.data_ptr(), cot.data_ptr(),
-                    grad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                    grad.data_ptr(), stream)
             else:
-                feat, basis, gidx, starts, x_tiles, raw, cot = b4_args
+                feat, basis, gidx, starts, x_tiles, raw, cot = bwd[kernel]
                 grad = torch.zeros_like(feat)
                 err = lib.gs_render_sh_bwd(
                     feat.data_ptr(), feat.shape[1], basis.data_ptr(), basis.shape[0],
                     gidx.data_ptr(), starts.data_ptr(), starts.numel() - 1, x_tiles,
-                    raw.data_ptr(), cot.data_ptr(), grad.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    raw.data_ptr(), cot.data_ptr(), grad.data_ptr(), stream)
             _build.check(err, kernel)
             return grad
 
         timer = timing.Timer(dev)
-        for kernel in ("B2", "B4"):
+        for kernel in args.kernels:
             p = want[kernel]
-            scale = p.abs().amax(dim=1).clamp_min(1e-30)
             for tree, lib in libs.items():
                 got = call(lib, kernel)
                 torch.cuda.synchronize()
-                rel = float(((got - p).abs().amax(dim=1) / scale).max())
-                print(f"[check] {kernel} {tree}: max error per row relative to the "
-                      f"row's max {rel:.3e} (chip_smoke.py holds {cs.BWD_REL_TOL})")
-            order = list(libs.items())
+                if kernel in fwd_args:
+                    img_err, t_err = cs.raw_errors(got, p, cc.T_EPS)
+                    print(f"[check] {kernel} {tree}: max|image| {img_err:.3e} (tol "
+                          f"{cs.IMG_TOL}), max|T| where T>=1e-4 {t_err:.3e} (tol "
+                          f"{cs.T_TOL})")
+                else:
+                    scale = p.abs().amax(dim=1).clamp_min(1e-30)
+                    rel = float(((got - p).abs().amax(dim=1) / scale).max())
+                    print(f"[check] {kernel} {tree}: max error per row relative to the "
+                          f"row's max {rel:.3e} (chip_smoke.py holds {cs.BWD_REL_TOL})")
+            turns = list(libs.items())
             runs = {tree: [] for tree in libs}
-            for tree, lib in order + order[::-1]:
+            for tree, lib in turns + turns[::-1]:
                 runs[tree].append(timer.ms(lambda: call(lib, kernel)))
             for tree, ms in runs.items():
                 print(f"[time] {kernel} {tree}: {sum(ms) / len(ms):.4f} ms "
                       f"({' '.join(f'{x:.4f}' for x in ms)}; {timer.clock}; {smi})")
+            if kernel in fwd_args:
+                feat, starts = fwd_args[kernel][0], fwd_args[kernel][3]
+                for tree, lib in turns:
+                    if hasattr(lib, "gs_pack_fwd_rows"):
+                        pack_ms = timer.ms(lambda: pack(lib, feat))
+                        order_ms = timer.ms(lambda: tile_order(lib, starts))
+                        print(f"[time] {kernel} {tree}: its pack alone {pack_ms:.4f} ms "
+                              f"({tuple(feat.shape)} rows), its tile order alone "
+                              f"{order_ms:.4f} ms ({timer.clock})")
 
 
 if __name__ == "__main__":

@@ -20,9 +20,14 @@ counters, that each went through its kernels:
   probe's full sweep, every point's kernel against its plain version,
   with kernel, plain and library-call times and the bound.
 
+B1 and B3 each launch a pack of the feature rows into gaussian-major
+records first (gs_pack_fwd_rows), held bitwise against its plain version,
+and an order of the tiles by splat count (gs_tile_order), held against its
+plain version up to the order of ties.
 It times the kernels against their plain versions, works out each kernel's
-bound (the least time the card could take for the same work), and
-profiles one step of each training path.
+bound (the least time the card could take for the same work), prints the
+spread of the work over view 0's tiles, and profiles one step of each
+training path.
 
     python3 chip_smoke.py
 
@@ -208,6 +213,8 @@ def compare(label, dc, dep, grid, alpha_threshold):
     from gaussian_splatting_torch.ops.render import render_fwd_cuda, render_fwd_plain
 
     feat, lay = dc
+    check_pack(f"{label} B1", feat)
+    check_tile_order(f"{label} B1", lay)
     k = render_fwd_cuda(feat, lay.gaussian_idx, lay.tile_starts, grid.x_tiles)
     torch.cuda.synchronize()
     p = render_fwd_plain(feat, lay.gaussian_idx, lay.tile_starts, grid.x_tiles)
@@ -248,6 +255,50 @@ def compare(label, dc, dep, grid, alpha_threshold):
     return img_err, d_err
 
 
+def check_pack(label, feat):
+    """The pack kernel that B1 and B3 launch first, bitwise against its
+    plain version (the float32 bits of every record)."""
+    import torch
+
+    from gaussian_splatting_torch.ops.render import pack_fwd_rows_cuda, pack_fwd_rows_plain
+
+    k = pack_fwd_rows_cuda(feat)
+    torch.cuda.synchronize()
+    p = pack_fwd_rows_plain(feat)
+    same = tuple(k.shape) == tuple(p.shape) and torch.equal(
+        k.view(torch.int32), p.view(torch.int32))
+    print(f"  {label} pack: {tuple(k.shape)} records, bitwise equal to "
+          f"pack_fwd_rows_plain: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the pack kernel differs from its plain version")
+
+
+def check_tile_order(label, lay):
+    """The tile-order kernel that B1 and B3 launch second, against its plain
+    version: a permutation of the tiles whose (clamped) splat counts run as
+    the plain order's do.  Ties may come in another order."""
+    import torch
+
+    from gaussian_splatting_torch.ops.render import (
+        ORDER_BUCKETS,
+        tile_order_cuda,
+        tile_order_plain,
+    )
+
+    starts = lay.tile_starts
+    k = tile_order_cuda(starts).long()
+    torch.cuda.synchronize()
+    p = tile_order_plain(starts).long()
+    counts = (starts[1:] - starts[:-1]).clamp_max(ORDER_BUCKETS - 1)
+    perm = torch.equal(torch.sort(k).values, torch.arange(k.numel(), device=k.device))
+    same = perm and torch.equal(counts[k], counts[p])
+    print(f"  {label} tile order: a permutation of the {k.numel()} tiles: {perm}; "
+          f"splat counts along it equal to tile_order_plain's: {same}; heaviest "
+          f"{int(counts[k[0]])} splats, lightest {int(counts[k[-1]])}")
+    if not same:
+        raise AssertionError(f"{label}: the tile order differs from its plain version")
+
+
 def raw_errors(k, p, t_eps):
     """max |image| error, and max |T| error where the plain T >= T_EPS."""
     img_err = float((k[0:3] - p[0:3]).abs().max())
@@ -267,6 +318,7 @@ def compare_sh(label, sh_in):
     )
 
     feat, basis, lay, x_tiles = sh_in
+    check_pack(f"{label} B3 (n_sh {basis.shape[0]})", feat)
     args = (feat, basis, lay.gaussian_idx, lay.tile_starts, x_tiles)
     k = render_sh_fwd_cuda(*args)
     torch.cuda.synchronize()
@@ -363,24 +415,49 @@ def compare_bwd(label, name, kern, plain, args, row_names):
 
 
 def pair_counts(feat, lay, x_tiles, clamp=False):
-    """(evaluated, composited) splat-pixel pairs of a compositing walk on
-    these inputs: pairs a pixel reaches while T >= T_EPS, and those of them
-    with alpha >= 1/255 (``clamp``: the backward's clamped alpha)."""
+    """(evaluated, composited, per tile) splat-pixel pairs of a compositing
+    walk on these inputs: pairs a pixel reaches while T >= T_EPS, those of
+    them with alpha >= 1/255 (``clamp``: the backward's clamped alpha), and
+    the evaluated pairs of each tile, (n_tiles,)."""
     import torch
 
     from gaussian_splatting_torch.ops import render as tr
 
     n_tiles = lay.tile_starts.numel() - 1
     T = torch.ones(n_tiles, 256, device=feat.device)
+    tile_pairs = torch.zeros(n_tiles, dtype=torch.int64, device=feat.device)
     evaluated = composited = 0
     for tiles, gid, ok in tr._tile_chunks(lay.gaussian_idx, lay.tile_starts,
                                           tr.PLAIN_CHUNK):
         alpha = tr._alpha_chunk(feat, gid, tiles, x_tiles)
         at, prod, active, _ = tr._composite_chunk(T[tiles], alpha, ok, clamp=clamp)
-        evaluated += int((active & ok[:, None, :]).sum())
+        live = active & ok[:, None, :]
+        evaluated += int(live.sum())
         composited += int((active & (at > 0)).sum())
+        tile_pairs.index_add_(0, tiles, live.sum(dim=(1, 2)))
         T[tiles] = tr._t_after(prod, active)
-    return evaluated, composited
+    return evaluated, composited, tile_pairs
+
+
+def tile_spread(label, lay, tile_pairs):
+    """Print the spread of evaluated pairs over a view's tiles and the
+    splats per tile: whether the longest tiles could end a launch that
+    takes the tiles in index order."""
+    import torch
+
+    counts = (lay.tile_starts[1:] - lay.tile_starts[:-1]).double()
+    pairs = tile_pairs.double()
+    q = torch.tensor([0.0, 0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=pairs.device)
+    pq = torch.quantile(pairs, q).tolist()
+    cq = torch.quantile(counts, q).tolist()
+    top = torch.argsort(pairs, descending=True)
+    share = float(pairs[top[:132]].sum() / pairs.sum())
+    print(f"[tiles] {label}: num_splats {lay.num_splats} over {counts.numel()} tiles; "
+          f"splats per tile min/median/p90/p99/max {' / '.join(f'{x:.0f}' for x in cq)}; "
+          f"evaluated pairs per tile {' / '.join(f'{x:.0f}' for x in pq)} "
+          f"(mean {float(pairs.mean()):.0f}); the 132 heaviest tiles hold "
+          f"{share:.1%} of the pairs; launch positions of the 10 heaviest "
+          f"{sorted(top[:10].tolist())}")
 
 
 def warp_counts(feat, lay, x_tiles, rnd=32):
@@ -458,10 +535,11 @@ def kernel_bounds(s_dc, s_dep, s_grid, s_sh):
     def layout_bytes(la):
         return f32 * (la.num_splats + la.tile_starts.numel())
 
-    ev, co = pair_counts(feat, lay, s_grid.x_tiles)
-    ev_b, co_b = pair_counts(feat, lay, s_grid.x_tiles, clamp=True)
-    sev, sco = pair_counts(sfeat, slay, x_tiles)
-    sev_b, sco_b = pair_counts(sfeat, slay, x_tiles, clamp=True)
+    ev, co, tile_pairs = pair_counts(feat, lay, s_grid.x_tiles)
+    tile_spread("garden view 0", lay, tile_pairs)
+    ev_b, co_b, _ = pair_counts(feat, lay, s_grid.x_tiles, clamp=True)
+    sev, sco, _ = pair_counts(sfeat, slay, x_tiles)
+    sev_b, sco_b, _ = pair_counts(sfeat, slay, x_tiles, clamp=True)
     dev = depth_pairs(dfeat, dlay, s_grid.x_tiles, ALPHA_THRESHOLD)
     feat_b, sfeat_b = f32 * feat.numel(), f32 * sfeat.numel()
     raw_b = f32 * 4 * n_pix
@@ -700,6 +778,8 @@ def run_probes(smi):
 
 # device kernels named in the step profile, by a part of their symbol
 KERNEL_PARTS = (
+    ("pack_fwd_rows_kernel", "pack of B1/B3's records"),
+    ("tile_order_kernel", "B1/B3's tile order"),
     ("render_fwd_kernel", "B1 (DC forward kernel)"),
     ("render_bwd_kernel", "B2 (DC backward kernel)"),
     ("render_sh_fwd_kernel", "B3 (per-pixel SH forward kernel)"),
@@ -1055,7 +1135,9 @@ def main():
         entry("render_fwd", "render_fwd (B1, DC forward)",
               "gaussian_splatting_torch/csrc/render_fwd.cu",
               "gaussian_splatting_tpu/ops/render.py:525",
-              launches["render_fwd"] + train_launches["render_fwd"], img_err),
+              launches["render_fwd"] + train_launches["render_fwd"], img_err,
+              pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
+              tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("depth_fwd", "depth_fwd (B5, depth)",
               "gaussian_splatting_torch/csrc/depth_fwd.cu",
               "gaussian_splatting_tpu/ops/depth.py:53",
@@ -1068,7 +1150,9 @@ def main():
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
               "gaussian_splatting_torch/csrc/render_sh_fwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:93",
-              sh_launches["render_sh_fwd"] + sh_train_launches["render_sh_fwd"], b3_err),
+              sh_launches["render_sh_fwd"] + sh_train_launches["render_sh_fwd"], b3_err,
+              pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
+              tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("render_sh_bwd", "render_sh_bwd (B4, per-pixel SH backward)",
               "gaussian_splatting_torch/csrc/render_sh_bwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:187",

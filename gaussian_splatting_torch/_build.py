@@ -52,17 +52,22 @@ SOURCE_DIRS = {"kernels": SRC_DIR, "probes": SRC_DIR / "probes"}
 # stream as c_void_p)
 SIGNATURES = {
     "kernels": {
-        # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, out, stream
-        "gs_render_fwd": (_P, _I, _P, _P, _I, _I, _P, _P),
+        # feat, n, rows, rec, stream
+        "gs_pack_fwd_rows": (_P, _I, _I, _P, _P),
+        # tile_starts, n_tiles, order, stream
+        "gs_tile_order": (_P, _I, _P, _P),
+        # rec, gaussian_idx, tile_starts, tile_order, n_tiles, x_tiles, out,
+        # stream
+        "gs_render_fwd": (_P, _P, _P, _P, _I, _I, _P, _P),
         # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles,
         # alpha_threshold, out, stream
         "gs_depth_fwd": (_P, _I, _P, _P, _I, _I, _F, _P, _P),
         # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, raw,
         # grad_raw, grad_feat, stream
         "gs_render_bwd": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
-        # feat, n, basis, n_sh, gaussian_idx, tile_starts, n_tiles, x_tiles,
-        # out, stream
-        "gs_render_sh_fwd": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _P),
+        # rec, basis, n_sh, gaussian_idx, tile_starts, tile_order, n_tiles,
+        # x_tiles, out, stream
+        "gs_render_sh_fwd": (_P, _P, _I, _P, _P, _P, _I, _I, _P, _P),
         # feat, n, basis, n_sh, gaussian_idx, tile_starts, n_tiles, x_tiles,
         # raw, grad_raw, grad_feat, stream
         "gs_render_sh_bwd": (_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),

@@ -193,17 +193,174 @@ __device__ __forceinline__ float splat_alpha(const SplatGeom& s, float up,
   return splat_pixel(s, up, vp).alpha;
 }
 
-// One channel of a splat's colour at a pixel: sum_k coeff[k] * basis[k],
-// summed in order of k (ops/render_sh.py::_sh_colour).  coeff points at the
-// splat's coefficient k = 0 in shared memory, one row of kPixelsPerTile
-// splats per k; basis is the pixel's own basis in registers.
-template <int NSH>
-__device__ __forceinline__ float sh_colour(const float* coeff,
-                                           const float (&basis)[NSH]) {
-  float col = coeff[0] * basis[0];
+// The forward kernels B1 and B3 (render_fwd.cu, render_sh_fwd.cu) read a
+// gaussian-major copy of the feature matrix that gs_pack_fwd_rows writes
+// per call: gaussian g's record holds floats rec[g * stride + i], i =
+// 0..5 the rows u, v, op, a, b, c, i = kRecRdet its rdet = 1 / (a c - b^2)
+// (load_geom's operations), then the remaining rows (B1's colour, B3's
+// 3 * n_sh coefficients), zero-padded to stride = a multiple of 4.  A
+// splat's gather is then stride / 4 16-byte loads (7 sectors of 32 bytes
+// for B3 at n_sh 16 where the row-major matrix took 54 one-float reads),
+// and rdet is worked out once per gaussian, not once per splat and tile.
+constexpr int kRecRdet = 6;
+constexpr int kRecRow6 = kRecRdet + 1;  // feature row 6 on, shifted by one
+
+__host__ __device__ constexpr int packed_stride(int rows) {
+  return (rows + 1 + 3) / 4 * 4;
+}
+
+// 16-byte copies from device to shared memory that bypass the registers
+// (cp.async, sm_80 on), so that a batch's gather runs behind the walk.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// B1 and B3 take their tiles heaviest first: block i walks tile
+// tile_order[i], an order of the tiles by splat count, largest first
+// (gs_tile_order in render_fwd.cu), so that the longest lists start in the
+// first wave of blocks instead of ending the launch.  Counts of kOrderBuckets
+// - 1 splats or more share the first bucket; within a bucket the order is
+// any.
+constexpr int kOrderBuckets = 1024;
+
+// B1 and B3 take a 16x16 tile with 128 threads, each owning two vertically
+// adjacent pixels (column t % 16, rows 2 (t / 16) and 2 (t / 16) + 1), so
+// that one read of a staged splat serves two pixels whose walks end close
+// together, and each thread carries two independent T chains.
+constexpr int kFwdThreads = kPixelsPerTile / 2;
+
+// A pixel of the forward walk: its transmittance and premultiplied colour.
+// Once T < kTEps it takes no more splats, so "stopped" is T < kTEps.
+struct FwdPixel {
+  float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
+  __device__ __forceinline__ bool live() const { return T >= kTEps; }
+  // composite a splat of raw alpha (>= kAlphaSkip) and colour (cr, cg, cb)
+  __device__ __forceinline__ void add(float alpha, float cr, float cg,
+                                      float cb) {
+    const float w = alpha * T;
+    r += cr * w;
+    g += cg * w;
+    b += cb * w;
+    T *= 1.0f - alpha;
+  }
+};
+
+// Pixel o's premultiplied r, g, b and T into the (4, n_pix) output.
+__device__ __forceinline__ void store_fwd_pixel(float* __restrict__ out,
+                                                int n_pix, int o,
+                                                const FwdPixel& px) {
+  out[0 * n_pix + o] = px.r;
+  out[1 * n_pix + o] = px.g;
+  out[2 * n_pix + o] = px.b;
+  out[3 * n_pix + o] = px.T;
+}
+
+// A staged splat's geometry: the first two words of its record, word 0's u
+// and v made tile-local when staged; word 1's last float is the record's
+// float 7 (B1's red, B3's coefficient 0).
+__device__ __forceinline__ SplatGeom staged_geom(const float4* at) {
+  const float4 x = at[0], y = at[1];
+  return {x.x, x.y, x.z, x.w, y.x, y.y, y.z};
+}
+
+// The batches of a tile's splat list [lo, hi), kBatch splats at a time, in
+// two stage buffers of kBatch records of W 16-byte words each (s_rec holds
+// 2 * kBatch * W words), each record contiguous.  While batch k is walked,
+// batch k + 1 is gathered into the other buffer: words 1.. by cp.async,
+// word 0 through registers, stored tile-local (u - ox - 7.5, load_geom's
+// operations) once it has landed.  walk(buffer, count) walks one batch and
+// returns whether any of the thread's pixels is still live; the block
+// leaves once none is.  (With the tiles heaviest first, one buffer filled
+// after the walk took B1 18% longer on the H100: PERF.md.)
+template <int W, int kBatch, typename Walk>
+__device__ __forceinline__ void fwd_batches(float4* s_rec,
+                                            const float4* __restrict__ rec,
+                                            const int* __restrict__ gaussian_idx,
+                                            int lo, int hi, float ox, float oy,
+                                            Walk walk) {
+  constexpr int kHeads = (kBatch + kFwdThreads - 1) / kFwdThreads;
+  const int t = threadIdx.x;
+  float4 head[kHeads];  // word 0 of splats t, t + 128, ... of the next batch
+  auto start = [&](float4* buf, int base) {
+    const int count = min(kBatch, hi - base);
 #pragma unroll
-  for (int k = 1; k < NSH; ++k) col += coeff[k * kPixelsPerTile] * basis[k];
-  return col;
+    for (int i = 0; i < kHeads; ++i) {
+      const int j = t + i * kFwdThreads;
+      if (j < count) head[i] = rec[size_t(gaussian_idx[base + j]) * W];
+    }
+    for (int x = t; x < count * (W - 1); x += kFwdThreads) {
+      const int j = x / (W - 1);
+      const int w = 1 + x - j * (W - 1);
+      cp_async16(buf + j * W + w, rec + size_t(gaussian_idx[base + j]) * W + w);
+    }
+    cp_async_commit();
+  };
+  if (lo < hi) start(s_rec, lo);
+  int stage = 0;
+  for (int base = lo; base < hi; base += kBatch, stage ^= 1) {
+    float4* cur = s_rec + stage * kBatch * W;
+    const int count = min(kBatch, hi - base);
+#pragma unroll
+    for (int i = 0; i < kHeads; ++i) {
+      const int j = t + i * kFwdThreads;
+      if (j < count) {
+        float4 x = head[i];
+        x.x = (x.x - ox) - kHalfTile;
+        x.y = (x.y - oy) - kHalfTile;
+        cur[j * W] = x;
+      }
+    }
+    cp_async_wait_all();
+    // the batch is staged; the other buffer was last read before the
+    // previous batch's closing barrier
+    __syncthreads();
+    if (base + kBatch < hi) start(s_rec + (stage ^ 1) * kBatch * W, base + kBatch);
+    // also keeps this buffer alive until every pixel has finished with it
+    if (__syncthreads_count(walk(cur, count)) == 0) break;
+  }
+  cp_async_wait_all();  // no copy outlives the block
+}
+
+// The colour of a staged splat at the thread's two pixels, channel by
+// channel: sum_k coeff[c * NSH + k] * basis[k] in order of k, in fused
+// multiply-adds (as render_sh_bwd.cu's sh_colour_packed).  sj is the
+// splat's staged record: coefficient r is its float kRecRow6 + r, so
+// coefficient 0 is word 1's last float and the rest are 16-byte broadcast
+// loads from word 2 on.
+template <int NSH>
+__device__ __forceinline__ void sh_colour_pair(const float4* sj,
+                                               const float (&b0)[NSH],
+                                               const float (&b1)[NSH],
+                                               float (&col0)[3],
+                                               float (&col1)[3]) {
+  constexpr int kCoeff = 3 * NSH;
+  constexpr int kWords = packed_stride(kShCoeff0 + kCoeff) / 4;
+  const float c0 = sj[1].w;
+  col0[0] = c0 * b0[0];
+  col1[0] = c0 * b1[0];
+#pragma unroll
+  for (int w = 2; w < kWords; ++w) {
+    const float4 v = sj[w];
+    const float cv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 4 * w + e - kRecRow6;
+      if (r < kCoeff) {
+        const int ch = r / NSH, k = r % NSH;
+        col0[ch] = k == 0 ? cv[e] * b0[0] : fmaf(cv[e], b0[k], col0[ch]);
+        col1[ch] = k == 0 ? cv[e] * b1[0] : fmaf(cv[e], b1[k], col1[ch]);
+      }
+    }
+  }
 }
 
 }  // namespace gs

@@ -72,9 +72,9 @@ struct ShBwd {
 };
 
 // The colour of a splat at a pixel, channel by channel: sum_k coeff[c * NSH
-// + k] * basis[k] in order of k, as sh_colour (common.cuh) sums it, here in
-// fused multiply-adds (it only feeds A); coeff is the splat's contiguous,
-// 16-byte aligned row.
+// + k] * basis[k] in order of k, as ops/render_sh.py::_sh_colour sums it,
+// here in fused multiply-adds (it only feeds A); coeff is the splat's
+// contiguous, 16-byte aligned row.
 template <int NSH>
 __device__ __forceinline__ void sh_colour_packed(const float* coeff,
                                                  const float (&basis)[NSH],

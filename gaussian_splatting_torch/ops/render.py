@@ -7,7 +7,10 @@ Pallas kernel ``gaussian_splatting_tpu/ops/render.py::_fwd_kernel``), on a
 CPU tensor it runs ``render_fwd_plain``, the plain PyTorch version of the
 same function.  There is no fallback from one to the other.  The kernel's
 source note says what bounds it on the H100 and what its design does
-about that.
+about that.  On the card B1 (and B3, ``ops/render_sh.py``) first packs the
+feature rows into gaussian-major records (``pack_fwd_rows_cuda``, plain
+version ``pack_fwd_rows_plain``) and orders the tiles heaviest first
+(``tile_order_cuda``, plain version ``tile_order_plain``).
 
 The backward, kernel B2 (``csrc/render_bwd.cu``, replacing the Pallas
 ``_bwd_kernel``), dispatches the same way through ``render_bwd``; its plain
@@ -279,17 +282,92 @@ def _check_raw_args(name, feat, n_tiles, raw, grad_raw):
             raise ValueError(f"{name}: {nm} must be contiguous on {feat.device}")
 
 
+# rdet's place in a packed record, after u, v, op, a, b, c (csrc/common.cuh)
+REC_RDET = 6
+
+
+def packed_stride(rows: int) -> int:
+    """Floats per gaussian in the forward kernels' packed records: the
+    ``rows`` feature rows and rdet, zero-padded to a multiple of 4."""
+    return (rows + 1 + 3) // 4 * 4
+
+
+def pack_fwd_rows_plain(feat):
+    """Plain PyTorch version of the pack that B1 and B3 read
+    (``gs_pack_fwd_rows`` in ``csrc/render_fwd.cu``): (rows, N) feature
+    rows -> (N, packed_stride(rows)) gaussian-major records u, v, op, a, b,
+    c, rdet, then rows 6.. (B1's colour, B3's coefficients), zero-padded.
+    rdet = 1 / (a c - b^2) with the operations of ``_splat_chunk`` and the
+    kernels' ``load_geom``, so the kernel's records agree bitwise."""
+    rows, n = feat.shape
+    a, b, c = feat[cc.FEAT_A], feat[cc.FEAT_B], feat[cc.FEAT_C]
+    rec = torch.zeros(n, packed_stride(rows), dtype=feat.dtype, device=feat.device)
+    rec[:, :REC_RDET] = feat[:REC_RDET].T
+    rec[:, REC_RDET] = 1.0 / (a * c - b * b)
+    rec[:, REC_RDET + 1:rows + 1] = feat[REC_RDET:].T
+    return rec
+
+
+def pack_fwd_rows_cuda(feat):
+    """Launch the pack kernel on the current stream: the records of
+    ``pack_fwd_rows_plain`` in a new (N, packed_stride(rows)) tensor."""
+    if not (feat.is_cuda and feat.dtype == torch.float32 and feat.is_contiguous()):
+        raise ValueError("pack_fwd_rows: feat must be contiguous float32 on a CUDA "
+                         f"device, got {feat.dtype} on {feat.device}")
+    if feat.dim() != 2 or feat.shape[0] <= REC_RDET:
+        raise ValueError(f"pack_fwd_rows: feat must be (rows > 6, N), got {tuple(feat.shape)}")
+    rows, n = feat.shape
+    rec = torch.empty(n, packed_stride(rows), dtype=torch.float32, device=feat.device)
+    err = _build.library().gs_pack_fwd_rows(
+        feat.data_ptr(), n, rows, rec.data_ptr(),
+        torch.cuda.current_stream(feat.device).cuda_stream)
+    _build.check(err, "gs_pack_fwd_rows")
+    return rec
+
+
+# the tile order's buckets: tiles of ORDER_BUCKETS - 1 splats or more tie
+ORDER_BUCKETS = 1024
+
+
+def tile_order_plain(tile_starts):
+    """Plain PyTorch version of the tile order that B1 and B3 walk
+    (``gs_tile_order`` in ``csrc/render_fwd.cu``): the tiles by splat count,
+    largest first, counts of ORDER_BUCKETS - 1 and more tied, ties in tile
+    order.  The kernel orders ties in any order, so its order agrees with
+    this one in the counts along it, not tile by tile."""
+    counts = (tile_starts[1:] - tile_starts[:-1]).clamp_max(ORDER_BUCKETS - 1)
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+
+
+def tile_order_cuda(tile_starts):
+    """Launch the tile-order kernel on the current stream: a new (n_tiles,)
+    int32 permutation of the tiles, heaviest first."""
+    if not (tile_starts.is_cuda and tile_starts.dtype == torch.int32
+            and tile_starts.is_contiguous()):
+        raise ValueError("tile_order: tile_starts must be contiguous int32 on a CUDA "
+                         f"device, got {tile_starts.dtype} on {tile_starts.device}")
+    n_tiles = tile_starts.numel() - 1
+    order = torch.empty(n_tiles, dtype=torch.int32, device=tile_starts.device)
+    err = _build.library().gs_tile_order(
+        tile_starts.data_ptr(), n_tiles, order.data_ptr(),
+        torch.cuda.current_stream(tile_starts.device).cuda_stream)
+    _build.check(err, "gs_tile_order")
+    return order
+
+
 def render_fwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int):
     """Launch kernel B1 on the current stream; same contract as
-    ``render_fwd_plain``."""
+    ``render_fwd_plain``.  B1 is three launches: the pack of ``feat`` into
+    gaussian-major records, the tile order, then the walk."""
     _check_cuda_args("render_fwd", feat, gaussian_idx, tile_starts)
     n_tiles = tile_starts.numel() - 1
     out = torch.empty(4, n_tiles * cc.PIXELS_PER_TILE, dtype=torch.float32,
                       device=feat.device)
-    lib = _build.library()
-    err = lib.gs_render_fwd(
-        feat.data_ptr(), feat.shape[1], gaussian_idx.data_ptr(),
-        tile_starts.data_ptr(), n_tiles, x_tiles, out.data_ptr(),
+    rec = pack_fwd_rows_cuda(feat)
+    order = tile_order_cuda(tile_starts)
+    err = _build.library().gs_render_fwd(
+        rec.data_ptr(), gaussian_idx.data_ptr(), tile_starts.data_ptr(),
+        order.data_ptr(), n_tiles, x_tiles, out.data_ptr(),
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_render_fwd")

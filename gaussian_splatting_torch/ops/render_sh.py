@@ -32,6 +32,8 @@ from gaussian_splatting_torch.ops.render import (
     _finish,
     bwd_walk,
     fwd_walk,
+    pack_fwd_rows_cuda,
+    tile_order_cuda,
 )
 
 SH_BASE_ROWS = 6  # u, v, opacity, a, b, c: the DC feature matrix's first rows
@@ -147,18 +149,21 @@ def render_sh_bwd_plain(feat, basis, gaussian_idx, tile_starts, x_tiles: int,
 
 def render_sh_fwd_cuda(feat, basis, gaussian_idx, tile_starts, x_tiles: int):
     """Launch kernel B3 on the current stream; same contract as
-    ``render_sh_fwd_plain``."""
+    ``render_sh_fwd_plain``.  Like B1, three launches: the pack of ``feat``
+    into gaussian-major records (``ops/render.py::pack_fwd_rows_cuda``), the
+    tile order (``tile_order_cuda``), then the walk."""
     n_sh = _check_sh_args("render_sh_fwd", feat, basis, gaussian_idx, tile_starts,
                           contiguous=True)
     _check_cuda_args("render_sh_fwd", feat, gaussian_idx, tile_starts)
     n_tiles = tile_starts.numel() - 1
     out = torch.empty(4, n_tiles * cc.PIXELS_PER_TILE, dtype=torch.float32,
                       device=feat.device)
-    lib = _build.library()
-    err = lib.gs_render_sh_fwd(
-        feat.data_ptr(), feat.shape[1], basis.data_ptr(), n_sh,
-        gaussian_idx.data_ptr(), tile_starts.data_ptr(), n_tiles, x_tiles,
-        out.data_ptr(), torch.cuda.current_stream(feat.device).cuda_stream,
+    rec = pack_fwd_rows_cuda(feat)
+    order = tile_order_cuda(tile_starts)
+    err = _build.library().gs_render_sh_fwd(
+        rec.data_ptr(), basis.data_ptr(), n_sh, gaussian_idx.data_ptr(),
+        tile_starts.data_ptr(), order.data_ptr(), n_tiles, x_tiles, out.data_ptr(),
+        torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_render_sh_fwd")
     _build.LAUNCHES["render_sh_fwd"] += 1
