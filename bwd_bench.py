@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the rasterizer kernels B1, B2, B3 and B4 built from several source
-trees, in turns, on one card.
+"""Time the rasterizer kernels B1, B2, B3, B4 and the depth kernel B5 built
+from several source trees, in turns, on one card.
 
 Each argument is a directory holding a copy of
 ``gaussian_splatting_torch/csrc`` (or a part of it: ``common.cuh`` and the
-``render_*.cu`` files) in which the kernels may have been edited; with none,
+``render_*.cu`` and ``depth_fwd.cu`` files) in which the kernels may have
+been edited; with none,
 the package's own sources are timed.  Every directory is compiled with the
 package's nvcc flags into a library of its own, all at once.  Then each
 kernel of each tree runs on the inputs of ``chip_smoke.py``'s garden view 0
-(1296x840; B3 and B4 at n_sh 16; B2 and B4 with a seeded cotangent) and is
-held against its plain PyTorch version: B1 and B3 on the image and on T
-where T >= T_EPS, B2 and B4 per gradient row relative to the row's max.
+(1296x840; B3 and B4 at n_sh 16; B2 and B4 with a seeded cotangent; B5 at
+alpha threshold 0.5) and is held against its plain PyTorch version: B1 and
+B3 on the image and on T where T >= T_EPS, B2 and B4 per gradient row
+relative to the row's max, B5 against ``depth_fwd_plain(chunk=1)`` on
+hit/miss and depth, with the pixels whose depth differs bitwise from the
+first tree's.
 The kernels are timed on ``gaussian_splatting_torch.timing``'s clock in the
 order first, ..., last, last, ..., first.
 
@@ -19,7 +23,9 @@ B1 and B3 are called as their tree defines them: where the library exports
 gaussian-major records, orders the tiles (``gs_tile_order``) and walks them
 in that order (the pack and the order are also timed alone); otherwise the
 walk reads the row-major matrix in tile order (the kernels before the
-pack).
+pack).  B5 is called with the parameters its tree's ``gs_depth_fwd``
+declares: the row-major matrix, or the pack's records, with the tile
+order where it takes one.
 
     python3 bwd_bench.py [--kernels B1,B3,...] [DIR ...]
 
@@ -31,6 +37,7 @@ its error is printed, not held.
 import argparse
 import ctypes
 import hashlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -38,8 +45,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("B1", "B3", "B2", "B4")
-_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = ("B1", "B3", "B2", "B4", "B5")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # B1 and B3's launchers before the pack: the row-major (rows, n) matrix
 ROW_MAJOR_FWD = {
     # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, out, stream
@@ -69,11 +76,27 @@ def build_tree(src: Path, out_dir: Path):
     so = tmp / "libgs_bench.so"
     link = [nvcc, "-shared", *_build.NVCC_FLAGS[:2], "-o", str(so),
             *[cmd[-1] for cmd, _ in jobs]]
-    return so, jobs, link
+    return so, jobs, link, src
 
 
-def finish_tree(so, jobs, link):
-    """Wait for the compiles, link, and return (library, ptxas report)."""
+def depth_params(src: Path):
+    """(name, ctypes type) of each parameter of the tree's gs_depth_fwd, or
+    None where the tree has no depth kernel."""
+    path = src / "depth_fwd.cu"
+    if not path.exists():
+        return None
+    m = re.search(r'extern "C" int gs_depth_fwd\(([^)]*)\)', path.read_text())
+    params = []
+    for p in m.group(1).split(","):
+        decl, name = " ".join(p.split()).rsplit(" ", 1)
+        ctype = _P if "*" in p or decl == "cudaStream_t" else _F if decl == "float" else _I
+        params.append((name.lstrip("*"), ctype))
+    return params
+
+
+def finish_tree(so, jobs, link, src):
+    """Wait for the compiles, link, and return (library, ptxas report); the
+    library's ``depth_params`` are its gs_depth_fwd's (``depth_params``)."""
     from gaussian_splatting_torch import _build
 
     log = []
@@ -88,8 +111,11 @@ def finish_tree(so, jobs, link):
     packed = hasattr(lib, "gs_pack_fwd_rows")
     sigs = dict(_build.SIGNATURES["kernels"]) if packed else {**_build.SIGNATURES["kernels"],
                                                            **ROW_MAJOR_FWD}
+    lib.depth_params = depth_params(src)
+    if lib.depth_params is not None:
+        sigs["gs_depth_fwd"] = tuple(ctype for _, ctype in lib.depth_params)
     for name, argtypes in sigs.items():
-        if name != "gs_depth_fwd" and hasattr(lib, name):
+        if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
@@ -116,6 +142,7 @@ def main(argv=None):
     import chip_smoke as cs
     from gaussian_splatting_torch import _build, timing
     from gaussian_splatting_torch.ops import common as cc
+    from gaussian_splatting_torch.ops.depth import depth_fwd_plain
     from gaussian_splatting_torch.ops.render import (
         packed_stride,
         render_bwd_plain,
@@ -156,8 +183,8 @@ def main(argv=None):
                         cull_mask_padding=cfg.cull_mask_padding, mh_dist=cfg.mh_dist)
         scene, cam, pose = cs.scene_view(dev)
         params = {k: v.detach() for k, v in scene.params().items()}
-        s_dc, _, s_grid = cs.kernel_inputs(scene, cam, pose, scene_kw, cs.SH_BAND,
-                                           depth_kw)
+        s_dc, s_dep, s_grid = cs.kernel_inputs(scene, cam, pose, scene_kw, cs.SH_BAND,
+                                               depth_kw)
         s_sh = cs.sh_kernel_inputs(params, scene.alive, pose, cam, scene_kw, cs.SH_BAND)
         # B1, B3: (feat, basis or None, gaussian_idx, tile_starts, x_tiles)
         fwd_args = {"B1": (s_dc[0], None, s_dc[1].gaussian_idx, s_dc[1].tile_starts,
@@ -166,9 +193,16 @@ def main(argv=None):
                            s_sh[3])}
         bwd = {"B2": cs.bwd_args(s_dc, s_grid, seed=2) if "B2" in args.kernels else None,
                "B4": cs.sh_bwd_args(s_sh, seed=3) if "B4" in args.kernels else None}
+        # B5: (feat, gaussian_idx, tile_starts, x_tiles, alpha_threshold)
+        depth_args = (s_dep[0], s_dep[1].gaussian_idx, s_dep[1].tile_starts,
+                      s_grid.x_tiles, cs.ALPHA_THRESHOLD)
         want = {}
         for kernel in args.kernels:
-            if kernel == "B1":
+            if kernel == "B5":
+                want[kernel] = depth_fwd_plain(*depth_args, chunk=1)
+                _, steps = cs.depth_pairs(*depth_args[:1], s_dep[1], *depth_args[3:])
+                cs.depth_tile_spread("garden view 0", s_dep[1], steps)
+            elif kernel == "B1":
                 feat, _, gidx, starts, x_tiles = fwd_args[kernel]
                 want[kernel] = render_fwd_plain(feat, gidx, starts, x_tiles)
             elif kernel == "B3":
@@ -201,7 +235,27 @@ def main(argv=None):
                                            order.data_ptr(), stream), "tile order")
             return order
 
+        def call_depth(lib):
+            feat, gidx, starts, x_tiles, threshold = depth_args
+            n_tiles = starts.numel() - 1
+            out = torch.empty(n_tiles * cc.PIXELS_PER_TILE, dtype=torch.float32,
+                              device=dev)
+            names = [name for name, _ in lib.depth_params]
+            keep = {}  # the pack's and the order's outputs live until the walk is queued
+            if "rec" in names:
+                keep["rec"] = pack(lib, feat)
+            if "tile_order" in names:
+                keep["tile_order"] = tile_order(lib, starts)
+            vals = dict(feat=feat.data_ptr(), n=feat.shape[1], gaussian_idx=gidx.data_ptr(),
+                        tile_starts=starts.data_ptr(), n_tiles=n_tiles, x_tiles=x_tiles,
+                        alpha_threshold=threshold, out=out.data_ptr(), stream=stream,
+                        **{k: v.data_ptr() for k, v in keep.items()})
+            _build.check(lib.gs_depth_fwd(*[vals[name] for name in names]), "B5")
+            return out
+
         def call(lib, kernel):
+            if kernel == "B5":
+                return call_depth(lib)
             if kernel in fwd_args:
                 feat, basis, gidx, starts, x_tiles = fwd_args[kernel]
                 n_tiles = starts.numel() - 1
@@ -242,10 +296,22 @@ def main(argv=None):
         timer = timing.Timer(dev)
         for kernel in args.kernels:
             p = want[kernel]
+            first = None
             for tree, lib in libs.items():
                 got = call(lib, kernel)
                 torch.cuda.synchronize()
-                if kernel in fwd_args:
+                if kernel == "B5":
+                    first = got if first is None else first
+                    hk, hp = got >= 0, p >= 0
+                    both = hk & hp
+                    d_err = float((got - p).abs()[both].max()) if bool(both.any()) else 0.0
+                    differ = int((got.view(torch.int32) != first.view(torch.int32)).sum())
+                    print(f"[check] B5 {tree}: hit/miss agree on "
+                          f"{float((hk == hp).float().mean()):.6f} of pixels (need >= "
+                          f"{cs.HIT_AGREE}), max|depth| where both hit {d_err:.3e} (tol "
+                          f"{cs.DEPTH_TOL}); {differ} of {got.numel()} pixels differ "
+                          f"bitwise from {next(iter(libs))}'s")
+                elif kernel in fwd_args:
                     img_err, t_err = cs.raw_errors(got, p, cc.T_EPS)
                     print(f"[check] {kernel} {tree}: max|image| {img_err:.3e} (tol "
                           f"{cs.IMG_TOL}), max|T| where T>=1e-4 {t_err:.3e} (tol "
@@ -262,16 +328,21 @@ def main(argv=None):
             for tree, ms in runs.items():
                 print(f"[time] {kernel} {tree}: {sum(ms) / len(ms):.4f} ms "
                       f"({' '.join(f'{x:.4f}' for x in ms)}; {timer.clock}; {smi})")
-            if kernel in fwd_args:
-                feat, starts = fwd_args[kernel][0], fwd_args[kernel][3]
+            if kernel in fwd_args or kernel == "B5":
+                feat, starts = ((depth_args[0], depth_args[2]) if kernel == "B5"
+                                else (fwd_args[kernel][0], fwd_args[kernel][3]))
                 for tree, lib in turns:
-                    if hasattr(lib, "gs_pack_fwd_rows"):
+                    names = ([name for name, _ in lib.depth_params] if kernel == "B5"
+                             else ["rec", "tile_order"] if hasattr(lib, "gs_pack_fwd_rows")
+                             else [])
+                    if "rec" in names:
                         pack_ms = timer.ms(lambda: pack(lib, feat))
-                        order_ms = timer.ms(lambda: tile_order(lib, starts))
                         print(f"[time] {kernel} {tree}: its pack alone {pack_ms:.4f} ms "
-                              f"({tuple(feat.shape)} rows), its tile order alone "
+                              f"({tuple(feat.shape)} rows; {timer.clock})")
+                    if "tile_order" in names:
+                        order_ms = timer.ms(lambda: tile_order(lib, starts))
+                        print(f"[time] {kernel} {tree}: its tile order alone "
                               f"{order_ms:.4f} ms ({timer.clock})")
-
 
 if __name__ == "__main__":
     main()

@@ -16,11 +16,16 @@ counters, that each went through its kernels:
   parameters, the densification counts and a falling loss on every view;
 - training, per-pixel SH: 8 steps of the same with
   SplatConfig(use_sh_precompute=False) (kernels B3, B4);
+- training, ADC and opacity reset: the scene at the JAX runner's capacity
+  for it (524,288 slots), 8 DC steps, trainer.adaptive_density_control at
+  iteration 1000, checked for its slot accounting, zero moments and
+  accumulators and the split's law, 4 steps, trainer.reset_opacity, 4
+  steps (kernels B1, B2);
 - the TPU probes E1-E3 (gaussian_splatting_torch/experiments): each
   probe's full sweep, every point's kernel against its plain version,
   with kernel, plain and library-call times and the bound.
 
-B1 and B3 each launch a pack of the feature rows into gaussian-major
+B1, B3 and B5 each launch a pack of the feature rows into gaussian-major
 records first (gs_pack_fwd_rows), held bitwise against its plain version,
 and an order of the tiles by splat count (gs_tile_order), held against its
 plain version up to the order of ties.
@@ -80,6 +85,19 @@ TRAIN_SEED = 0
 RGB_NOISE = 0.3  # std of the seeded offset on the SH DC coefficients
 OPACITY_NOISE = 0.5  # std of the seeded offset on pre-sigmoid opacity
 STEP_TIMING_STEPS = 5  # extra steps timed after the checked run
+# the schedule's events: the garden scene at the capacity that the JAX
+# runner's derive_capacity (gaussian_splatting_tpu/runner.py:58-62) gives
+# its 63,879 points, 2**ceil(log2(8 n)); DC steps before the event and
+# around the reset; the event's iteration, where the adaptive fraction is
+# (6500 - 1000) / 5750 * 2 = 1.913
+ADC_CAPACITY = 524_288
+ADC_STEPS_BEFORE = 8  # two passes over the 4 views
+ADC_STEPS_AFTER = 4
+ADC_ITERATION = 1000
+# a split sample's r in [0, 1)^3: 1e-4, plus the float32 rounding of the
+# sample's position, up to 4 ulps of its largest coordinate over the scale
+BOX_TOL = 1e-4
+BOX_ULPS = 4
 
 # The H100 SXM's peaks (NVIDIA's data sheet, at its 700 W limit): device
 # memory and float32 outside the tensor cores.  A kernel's bound is the
@@ -227,6 +245,8 @@ def compare(label, dc, dep, grid, alpha_threshold):
         raise AssertionError(f"{label}: B1 disagrees with its plain version")
 
     dfeat, dlay = dep
+    check_pack(f"{label} B5", dfeat)
+    check_tile_order(f"{label} B5", dlay)
     kd = depth_fwd_cuda(dfeat, dlay.gaussian_idx, dlay.tile_starts,
                         grid.x_tiles, alpha_threshold)
     torch.cuda.synchronize()
@@ -256,7 +276,7 @@ def compare(label, dc, dep, grid, alpha_threshold):
 
 
 def check_pack(label, feat):
-    """The pack kernel that B1 and B3 launch first, bitwise against its
+    """The pack kernel that B1, B3 and B5 launch first, bitwise against its
     plain version (the float32 bits of every record)."""
     import torch
 
@@ -274,7 +294,7 @@ def check_pack(label, feat):
 
 
 def check_tile_order(label, lay):
-    """The tile-order kernel that B1 and B3 launch second, against its plain
+    """The tile-order kernel that B1, B3 and B5 launch second, against its plain
     version: a permutation of the tiles whose (clamped) splat counts run as
     the plain order's do.  Ties may come in another order."""
     import torch
@@ -490,27 +510,59 @@ def warp_counts(feat, lay, x_tiles, rnd=32):
 
 
 def depth_pairs(dfeat, dlay, x_tiles, alpha_threshold):
-    """Splat-pixel pairs B5 evaluates: up to and including each pixel's
-    crossing, every pair where nothing crosses."""
+    """What B5 walks: (splat-pixel pairs it evaluates, up to and including
+    each pixel's crossing and every pair where nothing crosses; the steps
+    of each tile's block, (n_tiles,): the most over its pixels of the
+    crossing's place in the list + 1, or the list's length on a miss)."""
     import torch
 
     from gaussian_splatting_torch.ops import render as tr
 
     n_tiles = dlay.tile_starts.numel() - 1
+    counts = (dlay.tile_starts[1:] - dlay.tile_starts[:-1]).long()
     T = torch.ones(n_tiles, 256, device=dfeat.device)
     found = torch.zeros(n_tiles, 256, dtype=torch.bool, device=dfeat.device)
+    steps = counts[:, None].expand(n_tiles, 256).clone()  # a miss walks the list
     n = 0
-    for tiles, gid, ok in tr._tile_chunks(dlay.gaussian_idx, dlay.tile_starts,
-                                          tr.PLAIN_CHUNK):
+    for k, (tiles, gid, ok) in enumerate(tr._tile_chunks(
+            dlay.gaussian_idx, dlay.tile_starts, tr.PLAIN_CHUNK)):
         alpha = tr._alpha_chunk(dfeat, gid, tiles, x_tiles)
         at = torch.where(ok[:, None, :], alpha, torch.zeros_like(alpha))
         prod = torch.cumprod(torch.cat([T[tiles, :, None], 1.0 - at], dim=2), dim=2)
         crossed = ((1.0 - prod[..., 1:]) > alpha_threshold).int()
         earlier = (torch.cumsum(crossed, dim=2) - crossed) > 0
         n += int((ok[:, None, :] & ~found[tiles][:, :, None] & ~earlier).sum())
+        new = crossed.bool().any(dim=2) & ~found[tiles]
+        at_step = k * tr.PLAIN_CHUNK + crossed.argmax(dim=2) + 1
+        steps[tiles] = torch.where(new, at_step, steps[tiles])
         found[tiles] |= crossed.bool().any(dim=2)
         T[tiles] = prod[..., -1]
-    return n
+    return n, steps.amax(dim=1)
+
+
+def _ranks(x):
+    """Ranks of the values of x (numpy), ties given their mean rank."""
+    _, inverse, counts = np.unique(x, return_inverse=True, return_counts=True)
+    upper = np.cumsum(counts)
+    return ((upper - counts + upper - 1) / 2.0)[inverse]
+
+
+def depth_tile_spread(label, dlay, tile_steps):
+    """Print the spread of B5's steps per tile (depth_pairs), their rank
+    correlation with the splat count that gs_tile_order sorts by, and the
+    index-order launch positions of the 10 heaviest tiles."""
+    steps = tile_steps.cpu().numpy().astype(np.float64)
+    counts = (dlay.tile_starts[1:] - dlay.tile_starts[:-1]).cpu().numpy().astype(np.float64)
+    q = np.quantile(steps, [0.0, 0.5, 0.9, 0.99, 1.0])
+    rho = float(np.corrcoef(_ranks(steps), _ranks(counts))[0, 1])
+    top = np.sort(np.argsort(-steps, kind="stable")[:10])
+    print(f"[depth tiles] {label}: B5's steps per tile (the slowest pixel's crossing "
+          f"+ 1, or the list on a miss) min/median/p90/p99/max "
+          f"{' / '.join(f'{x:.0f}' for x in q)} (mean {steps.mean():.1f}, total "
+          f"{steps.sum():.0f} against {counts.sum():.0f} splats); rank correlation "
+          f"with the splat count {rho:.4f}; launch positions of the 10 heaviest in "
+          f"index order {top.tolist()}; their steps {steps[top].astype(int).tolist()} and "
+          f"splat counts {counts[top].astype(int).tolist()}")
 
 
 def bound(nbytes, ops):
@@ -540,7 +592,8 @@ def kernel_bounds(s_dc, s_dep, s_grid, s_sh):
     ev_b, co_b, _ = pair_counts(feat, lay, s_grid.x_tiles, clamp=True)
     sev, sco, _ = pair_counts(sfeat, slay, x_tiles)
     sev_b, sco_b, _ = pair_counts(sfeat, slay, x_tiles, clamp=True)
-    dev = depth_pairs(dfeat, dlay, s_grid.x_tiles, ALPHA_THRESHOLD)
+    dev, depth_steps = depth_pairs(dfeat, dlay, s_grid.x_tiles, ALPHA_THRESHOLD)
+    depth_tile_spread("garden view 0", dlay, depth_steps)
     feat_b, sfeat_b = f32 * feat.numel(), f32 * sfeat.numel()
     raw_b = f32 * 4 * n_pix
     sh_ops = 2 * 3 * n_sh
@@ -616,13 +669,21 @@ def training_setup(dev, scene_kw):
             img = rasterize(params0, scene.alive, poses[i % N_VIEWS], cam,
                             background_rgb=bgs[i], n_sh_band=SH_BAND, **scene_kw).image
             gts.append((img.clamp(0, 1) * 255).round().to(torch.uint8))
-        rng = np.random.default_rng(TRAIN_SEED)
-        n = scene.capacity
-        scene.rgb.add_(torch.from_numpy(
-            rng.normal(0, RGB_NOISE, (n, 3)).astype(np.float32)).to(dev))
-        scene.opacity.add_(torch.from_numpy(
-            rng.normal(0, OPACITY_NOISE, (n, 1)).astype(np.float32)).to(dev))
+        perturb(scene, scene.capacity)
     return dict(scene=scene, poses=poses, K=K, cam=cam, bgs=bgs, gts=gts)
+
+
+def perturb(scene, n):
+    """The training paths' seeded offset of the colour and pre-sigmoid
+    opacity of the scene's first n slots, in place."""
+    import torch
+
+    rng = np.random.default_rng(TRAIN_SEED)
+    dev = scene.xyz.device
+    scene.rgb[:n].add_(torch.from_numpy(
+        rng.normal(0, RGB_NOISE, (n, 3)).astype(np.float32)).to(dev))
+    scene.opacity[:n].add_(torch.from_numpy(
+        rng.normal(0, OPACITY_NOISE, (n, 1)).astype(np.float32)).to(dev))
 
 
 def training_phase(setup, cfg, steps, tag, kernels):
@@ -712,6 +773,199 @@ def training_phase(setup, cfg, steps, tag, kernels):
     return launches, median_ms
 
 
+def dc_steps(state, setup, cfg, first, steps, tag):
+    """DC train steps first .. first + steps - 1 on the training setup's
+    views and targets; each must launch B1 and B2 once, and no other
+    rasterizer, with a finite loss.  Returns (state, launches)."""
+    from gaussian_splatting_torch import _build, trainer
+
+    kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
+    losses = []
+    _build.LAUNCHES.clear()
+    for i in range(first, first + steps):
+        state, info = trainer.train_step(state, setup["gts"][i], setup["K"],
+                                         setup["poses"][i % N_VIEWS], setup["bgs"][i], **kw)
+        losses.append(float(info["loss"]))
+    launches = dict(_build.LAUNCHES)
+    print(f"[{tag}] steps {first}-{first + steps - 1}: losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; launches {launches}")
+    want = {"render_fwd": steps, "render_bwd": steps}
+    if launches != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: expected launches {want} and finite losses, got "
+                             f"{launches}, {losses}")
+    return state, launches
+
+
+def check_adc(before, after, stats, cfg):
+    """The event's results on the card: the slot accounting, zero moments
+    at every slot it freed or wrote, zero accumulators, finite parameters,
+    and each split sample in the box R (r * exp(scale)), r in [0, 1)^3, of
+    its source in the state before the event (sample 1 in the source's
+    slot; sample 2 found by the colour and opacity it copies)."""
+    import torch
+
+    from gaussian_splatting_torch.geometry import quaternion_to_rotation
+
+    a0, a1 = before.alive, after.alive
+    p0, p1 = before.params, after.params
+    n_alive = int(stats["n_alive"])
+    written = (int(stats["n_clone"]) - int(stats["clone_deferred"])
+               + int(stats["n_split"]) - int(stats["split_deferred"]))
+    want_alive = int(a0.sum()) - int(stats["n_deleted"]) + written
+    print(f"[adc] n_alive {n_alive}: alive.sum() {int(a1.sum())}; alive before "
+          f"{int(a0.sum())} - deleted {int(stats['n_deleted'])} + clones and second "
+          f"samples written {written} = {want_alive}")
+    if not n_alive == int(a1.sum()) == want_alive:
+        raise AssertionError("ADC: the alive count does not add up")
+    touched = ((a0 != a1) | (p1["xyz"] != p0["xyz"]).any(1)
+               | (p1["scale"] != p0["scale"]).any(1))
+    adam = after.opt_state
+    for name in adam.mu:
+        if bool(adam.mu[name][touched].any()) or bool(adam.nu[name][touched].any()):
+            raise AssertionError(f"ADC: nonzero moments of {name} at a freed or written slot")
+    for acc in (after.uv_grad_accum, after.xyz_grad_accum, after.grad_accum_count):
+        if bool(acc.any()):
+            raise AssertionError("ADC: accumulators not zeroed")
+    for name, v in p1.items():
+        if not bool(torch.isfinite(v[a1]).all()):
+            raise AssertionError(f"ADC: params['{name}'] not finite on an alive slot")
+
+    # sources: split in place, their scale shrunk by split_scale_factor
+    new_scale = torch.log(torch.exp(p0["scale"]) / cfg.split_scale_factor)
+    src = torch.nonzero(a0 & a1 & (p1["scale"] == new_scale).all(1)).squeeze(1)
+    if len(src) == 0:
+        raise AssertionError("ADC split no gaussian")
+
+    def key(p, idx):  # a gaussian's opacity and red bits, which both samples keep
+        return ((p["opacity"][idx, 0].view(torch.int32).long() << 32)
+                | (p["rgb"][idx, 0].view(torch.int32).long() & 0xFFFFFFFF))
+
+    skeys, order = torch.sort(key(p1, src))
+    cand = torch.nonzero(touched & a1).squeeze(1)
+    cand = cand[~torch.isin(cand, src)]
+    pos = torch.searchsorted(skeys, key(p1, cand)).clamp_max(len(skeys) - 1)
+    found = skeys[pos] == key(p1, cand)
+    its_src = src[order[pos]]
+    second = found & (p1["scale"][cand] == p1["scale"][its_src]).all(1)
+    seconds, seconds_src = cand[second], its_src[second]
+    distinct = bool((skeys[1:] != skeys[:-1]).all())
+    print(f"[adc] split sources {len(src)} (n_split {int(stats['n_split'])}), second "
+          f"samples {len(seconds)} (n_split - split_deferred "
+          f"{int(stats['n_split']) - int(stats['split_deferred'])}); sources' keys distinct: "
+          f"{distinct}")
+    if not (distinct and len(src) == int(stats["n_split"])
+            and len(seconds) == int(stats["n_split"]) - int(stats["split_deferred"])):
+        raise AssertionError("ADC: the split's slots do not match its stats")
+    x = torch.cat([p1["xyz"][src], p1["xyz"][seconds]])
+    s = torch.cat([src, seconds_src])
+    q = p0["quaternion"][s]
+    rot = quaternion_to_rotation(q / torch.linalg.vector_norm(q, dim=1, keepdim=True))
+    scale = torch.exp(p0["scale"][s])
+    r = torch.einsum("nji,nj->ni", rot, x - p0["xyz"][s]) / scale
+    eps = torch.finfo(torch.float32).eps
+    tol = BOX_TOL + BOX_ULPS * eps * x.abs().amax(1, keepdim=True) / scale
+    inside = bool(((r >= -tol) & (r < 1 + tol)).all())
+    print(f"[adc] split samples {len(r)}: r = R^T (x - xyz) / exp(scale) in "
+          f"[{float(r.min()):.6f}, {float(r.max()):.6f}], each in [0, 1) at tol {BOX_TOL} + "
+          f"{BOX_ULPS} ulps of |x| / scale (largest tol {float(tol.max()):.2e}): {inside}; "
+          f"mean per axis {[round(float(m), 4) for m in r.mean(0)]}")
+    if not inside:
+        raise AssertionError("ADC: a split sample lies outside its source's box")
+
+
+def check_reset(before, after, cfg):
+    """Opacity inverse_sigmoid(reset value) in every slot, its moments zero,
+    the other leaves' moments as they were, the accumulators zero."""
+    import torch
+
+    from gaussian_splatting_torch.geometry import inverse_sigmoid
+
+    want = torch.tensor(inverse_sigmoid(cfg.reset_opacity_value), dtype=torch.float32)
+    op = after.params["opacity"]
+    ok = bool((op == want.to(op.device)).all())
+    m0, m1 = before.opt_state, after.opt_state
+    zero = not bool(m1.mu["opacity"].any()) and not bool(m1.nu["opacity"].any())
+    kept = all(torch.equal(m1.mu[k], m0.mu[k]) and torch.equal(m1.nu[k], m0.nu[k])
+               for k in m0.mu if k != "opacity")
+    acc = not any(bool(a.any()) for a in (after.uv_grad_accum, after.xyz_grad_accum,
+                                           after.grad_accum_count))
+    print(f"[reset] opacity {float(want):.6f} in all {op.shape[0]} slots: {ok}; opacity "
+          f"moments zero: {zero}; other moments kept: {kept}; accumulators zero: {acc}; "
+          f"Adam count {int(after.opt_state.count)}")
+    if not (ok and zero and kept and acc):
+        raise AssertionError("reset_opacity: state not as expected")
+
+
+def event_ms(fn):
+    """Host-clock ms of one call of fn, from and to an idle device; returns
+    (ms, fn's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def adc_phase(setup, cfg, smi):
+    """The schedule's two events on the garden scene at ADC_CAPACITY slots,
+    from the training paths' seeded perturbation: 8 DC steps, adaptive
+    density control at ADC_ITERATION, 4 steps, opacity reset, 4 steps.
+    Each event is timed on its first call and on a second call with the
+    same inputs (neither writes its input state).  Returns (the launches
+    of its 16 steps, event ms, reset ms), the second calls' times."""
+    import collections
+
+    import torch
+
+    from gaussian_splatting_torch import checkpoint as ckpt
+    from gaussian_splatting_torch import trainer
+
+    dev = setup["K"].device
+    scene = ckpt.import_ply(SCENE, device=dev, capacity=ADC_CAPACITY)
+    n = scene.num_alive()
+    if not bool(scene.alive[:n].all()):
+        raise AssertionError("the scene's points are not its first slots")
+    with torch.no_grad():
+        perturb(scene, n)
+    state = trainer.init_train_state(scene, cfg)
+    print(f"[adc] {n} gaussians in {ADC_CAPACITY} slots (the JAX runner's "
+          f"derive_capacity), {ADC_STEPS_BEFORE} DC steps, then the event at iteration "
+          f"{ADC_ITERATION}")
+    launches = collections.Counter()
+    state, got = dc_steps(state, setup, cfg, 0, ADC_STEPS_BEFORE, "adc")
+    launches.update(got)
+
+    def event():
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        return trainer.adaptive_density_control(state, gen, ADC_ITERATION, config=cfg)
+
+    first_ms, (after, stats) = event_ms(event)
+    adc_ms, _ = event_ms(event)
+    names = list(stats)
+    vals = dict(zip(names, torch.stack([stats[k].double() for k in names]).cpu().tolist()))
+    factor = ((cfg.adaptive_control_end - ADC_ITERATION)
+              / (cfg.adaptive_control_end - cfg.adaptive_control_start) * 2.0)
+    print(f"[adc] adaptive_density_control at iteration {ADC_ITERATION} (factor "
+          f"{factor:.4f}, uv_pct {1 - (1 - cfg.uv_grad_percentile) * factor:.4f}, scale_pct "
+          f"{1 - (1 - cfg.scale_norm_percentile) * factor:.4f}): {vals}; {first_ms:.3f} ms "
+          f"on its first call, {adc_ms:.3f} ms on a second (host clock; {smi})")
+    check_adc(state, after, vals, cfg)
+
+    state, got = dc_steps(after, setup, cfg, ADC_STEPS_BEFORE, ADC_STEPS_AFTER, "adc")
+    launches.update(got)
+    first_ms, reset = event_ms(lambda: trainer.reset_opacity(state, config=cfg))
+    reset_ms, _ = event_ms(lambda: trainer.reset_opacity(state, config=cfg))
+    print(f"[reset] reset_opacity: {first_ms:.3f} ms on its first call, {reset_ms:.3f} ms "
+          f"on a second (host clock; {smi})")
+    check_reset(state, reset, cfg)
+    _, got = dc_steps(reset, setup, cfg, ADC_STEPS_BEFORE + ADC_STEPS_AFTER,
+                      ADC_STEPS_AFTER, "reset")
+    launches.update(got)
+    return dict(launches), adc_ms, reset_ms
+
+
 # the TPU probes: launch counter, name, source, the TPU kernel it replaces
 # and the sweep point that stands for it in the kernels line
 PROBES = (
@@ -778,8 +1032,8 @@ def run_probes(smi):
 
 # device kernels named in the step profile, by a part of their symbol
 KERNEL_PARTS = (
-    ("pack_fwd_rows_kernel", "pack of B1/B3's records"),
-    ("tile_order_kernel", "B1/B3's tile order"),
+    ("pack_fwd_rows_kernel", "pack of B1/B3/B5's records"),
+    ("tile_order_kernel", "B1/B3/B5's tile order"),
     ("render_fwd_kernel", "B1 (DC forward kernel)"),
     ("render_bwd_kernel", "B2 (DC backward kernel)"),
     ("render_sh_fwd_kernel", "B3 (per-pixel SH forward kernel)"),
@@ -1110,6 +1364,8 @@ def main():
         sh_cfg = SplatConfig(use_sh_precompute=False)
         sh_train_launches, sh_step_ms = training_phase(
             setup, sh_cfg, SH_TRAIN_STEPS, "train-sh", ("render_sh_fwd", "render_sh_bwd"))
+    with phase("training, ADC and opacity reset"):
+        adc_launches, adc_ms, reset_ms = adc_phase(setup, cfg, smi)
 
     with phase("backward timings and bounds"):
         times["render_bwd"] = time_kernel("render_bwd", render_bwd_cuda,
@@ -1135,17 +1391,20 @@ def main():
         entry("render_fwd", "render_fwd (B1, DC forward)",
               "gaussian_splatting_torch/csrc/render_fwd.cu",
               "gaussian_splatting_tpu/ops/render.py:525",
-              launches["render_fwd"] + train_launches["render_fwd"], img_err,
+              launches["render_fwd"] + train_launches["render_fwd"]
+              + adc_launches["render_fwd"], img_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("depth_fwd", "depth_fwd (B5, depth)",
               "gaussian_splatting_torch/csrc/depth_fwd.cu",
               "gaussian_splatting_tpu/ops/depth.py:53",
-              launches["depth_fwd"], d_err),
+              launches["depth_fwd"], d_err,
+              pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
+              tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("render_bwd", "render_bwd (B2, DC backward)",
               "gaussian_splatting_torch/csrc/render_bwd.cu",
               "gaussian_splatting_tpu/ops/render.py:635",
-              train_launches["render_bwd"], b2_abs,
+              train_launches["render_bwd"] + adc_launches["render_bwd"], b2_abs,
               max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
               "gaussian_splatting_torch/csrc/render_sh_fwd.cu",
@@ -1167,7 +1426,8 @@ def main():
             plain_ms=p["plain_ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"], point=point))
     print(f"[time] training step {step_ms:.3f} ms, per-pixel SH training step "
-          f"{sh_step_ms:.3f} ms (host clock; {smi})")
+          f"{sh_step_ms:.3f} ms, ADC event {adc_ms:.3f} ms, opacity reset {reset_ms:.3f} "
+          f"ms (host clock; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,9 +59,9 @@ SIGNATURES = {
         # rec, gaussian_idx, tile_starts, tile_order, n_tiles, x_tiles, out,
         # stream
         "gs_render_fwd": (_P, _P, _P, _P, _I, _I, _P, _P),
-        # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles,
+        # rec, gaussian_idx, tile_starts, tile_order, n_tiles, x_tiles,
         # alpha_threshold, out, stream
-        "gs_depth_fwd": (_P, _I, _P, _P, _I, _I, _F, _P, _P),
+        "gs_depth_fwd": (_P, _P, _P, _P, _I, _I, _F, _P, _P),
         # feat, n, gaussian_idx, tile_starts, n_tiles, x_tiles, raw,
         # grad_raw, grad_feat, stream
         "gs_render_bwd": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P),

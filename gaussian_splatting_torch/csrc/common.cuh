@@ -193,12 +193,13 @@ __device__ __forceinline__ float splat_alpha(const SplatGeom& s, float up,
   return splat_pixel(s, up, vp).alpha;
 }
 
-// The forward kernels B1 and B3 (render_fwd.cu, render_sh_fwd.cu) read a
-// gaussian-major copy of the feature matrix that gs_pack_fwd_rows writes
-// per call: gaussian g's record holds floats rec[g * stride + i], i =
-// 0..5 the rows u, v, op, a, b, c, i = kRecRdet its rdet = 1 / (a c - b^2)
-// (load_geom's operations), then the remaining rows (B1's colour, B3's
-// 3 * n_sh coefficients), zero-padded to stride = a multiple of 4.  A
+// The forward kernels B1, B3 and B5 (render_fwd.cu, render_sh_fwd.cu,
+// depth_fwd.cu) read a gaussian-major copy of the feature matrix that
+// gs_pack_fwd_rows writes per call: gaussian g's record holds floats
+// rec[g * stride + i], i = 0..5 the rows u, v, op, a, b, c, i = kRecRdet its
+// rdet = 1 / (a c - b^2) (load_geom's operations), then the remaining rows
+// (B1's colour, B3's 3 * n_sh coefficients, B5's distance), zero-padded to
+// stride = a multiple of 4.  A
 // splat's gather is then stride / 4 16-byte loads (7 sectors of 32 bytes
 // for B3 at n_sh 16 where the row-major matrix took 54 one-float reads),
 // and rdet is worked out once per gaussian, not once per splat and tile.
@@ -224,7 +225,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// B1 and B3 take their tiles heaviest first: block i walks tile
+// B1, B3 and B5 take their tiles heaviest first: block i walks tile
 // tile_order[i], an order of the tiles by splat count, largest first
 // (gs_tile_order in render_fwd.cu), so that the longest lists start in the
 // first wave of blocks instead of ending the launch.  Counts of kOrderBuckets
@@ -266,7 +267,7 @@ __device__ __forceinline__ void store_fwd_pixel(float* __restrict__ out,
 
 // A staged splat's geometry: the first two words of its record, word 0's u
 // and v made tile-local when staged; word 1's last float is the record's
-// float 7 (B1's red, B3's coefficient 0).
+// float 7 (B1's red, B3's coefficient 0, B5's distance).
 __device__ __forceinline__ SplatGeom staged_geom(const float4* at) {
   const float4 x = at[0], y = at[1];
   return {x.x, x.y, x.z, x.w, y.x, y.y, y.z};
@@ -279,25 +280,26 @@ __device__ __forceinline__ SplatGeom staged_geom(const float4* at) {
 // word 0 through registers, stored tile-local (u - ox - 7.5, load_geom's
 // operations) once it has landed.  walk(buffer, count) walks one batch and
 // returns whether any of the thread's pixels is still live; the block
-// leaves once none is.  (With the tiles heaviest first, one buffer filled
-// after the walk took B1 18% longer on the H100: PERF.md.)
-template <int W, int kBatch, typename Walk>
+// leaves once none is.  The block has kThreads threads: B1 and B3's 128 of
+// two pixels, B5's 256 of one.  (With the tiles heaviest first, one buffer
+// filled after the walk took B1 18% longer on the H100: PERF.md.)
+template <int W, int kBatch, int kThreads = kFwdThreads, typename Walk>
 __device__ __forceinline__ void fwd_batches(float4* s_rec,
                                             const float4* __restrict__ rec,
                                             const int* __restrict__ gaussian_idx,
                                             int lo, int hi, float ox, float oy,
                                             Walk walk) {
-  constexpr int kHeads = (kBatch + kFwdThreads - 1) / kFwdThreads;
+  constexpr int kHeads = (kBatch + kThreads - 1) / kThreads;
   const int t = threadIdx.x;
   float4 head[kHeads];  // word 0 of splats t, t + 128, ... of the next batch
   auto start = [&](float4* buf, int base) {
     const int count = min(kBatch, hi - base);
 #pragma unroll
     for (int i = 0; i < kHeads; ++i) {
-      const int j = t + i * kFwdThreads;
+      const int j = t + i * kThreads;
       if (j < count) head[i] = rec[size_t(gaussian_idx[base + j]) * W];
     }
-    for (int x = t; x < count * (W - 1); x += kFwdThreads) {
+    for (int x = t; x < count * (W - 1); x += kThreads) {
       const int j = x / (W - 1);
       const int w = 1 + x - j * (W - 1);
       cp_async16(buf + j * W + w, rec + size_t(gaussian_idx[base + j]) * W + w);
@@ -311,7 +313,7 @@ __device__ __forceinline__ void fwd_batches(float4* s_rec,
     const int count = min(kBatch, hi - base);
 #pragma unroll
     for (int i = 0; i < kHeads; ++i) {
-      const int j = t + i * kFwdThreads;
+      const int j = t + i * kThreads;
       if (j < count) {
         float4 x = head[i];
         x.x = (x.x - ox) - kHalfTile;

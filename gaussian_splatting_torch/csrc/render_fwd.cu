@@ -1,5 +1,6 @@
 // B1: DC forward rasterizer, front-to-back compositing per 16x16 tile, and
-// the pack of the per-gaussian rows that B1 and B3 read.
+// the pack of the per-gaussian rows and the tile order that B1, B3 and B5
+// read.
 //
 // Replaces the Pallas kernel gaussian_splatting_tpu/ops/render.py::_fwd_kernel
 // (launched by _render_fwd).  The plain PyTorch version is

@@ -9,6 +9,8 @@ zero, not NaN, in value and in gradient.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # real spherical-harmonics constants, bands 0..3
@@ -96,6 +98,38 @@ def sigma_world_rows(quaternion, scale):
     yz = r10 * r20 * s0 + r11 * r21 * s1 + r12 * r22 * s2
     zz = r20 * r20 * s0 + r21 * r21 * s1 + r22 * r22 * s2
     return xx, xy, xz, yy, yz, zz
+
+
+def quaternion_to_rotation(q):
+    """Normalised wxyz quaternions (N, 4) -> rotation matrices (N, 3, 3)."""
+    w, x, y, z = q.unbind(1)
+    r = torch.stack(
+        [
+            1 - 2 * y * y - 2 * z * z,
+            2 * x * y - 2 * z * w,
+            2 * z * x + 2 * w * y,
+            2 * x * y + 2 * z * w,
+            1 - 2 * x * x - 2 * z * z,
+            2 * y * z - 2 * w * x,
+            2 * z * x - 2 * w * y,
+            2 * y * z + 2 * w * x,
+            1 - 2 * x * x - 2 * y * y,
+        ],
+        dim=1,
+    )
+    return r.reshape(-1, 3, 3)
+
+
+def inverse_sigmoid(x):
+    """log(x / (1 - x)) of x clipped to [1e-4, 1 - 1e-4].  A tensor is worked
+    in its own dtype; a Python number in double precision, as the JAX
+    package forms it from a config value under x64, and the caller rounds
+    the result to float32 where a float32 tensor takes it."""
+    if isinstance(x, torch.Tensor):
+        x = x.clamp(1e-4, 1 - 1e-4)
+        return torch.log(x / (1.0 - x))
+    x = min(max(float(x), 1e-4), 1 - 1e-4)
+    return math.log(x / (1.0 - x))
 
 
 def conic_rows(sig6, xc, yc, zc, K, camera_T_world):

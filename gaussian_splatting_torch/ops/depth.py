@@ -11,7 +11,9 @@ of the first splat at which the accumulated alpha 1 - T crosses
 ``gaussian_splatting_tpu/ops/depth.py::_depth_kernel``) on a CUDA tensor
 and runs ``depth_fwd_plain`` on a CPU tensor, with no fallback between
 them.  The kernel's source note says what bounds it on the H100 and what
-its design does about that.
+its design does about that.  On the card B5 reads the records of B1's pack
+(``pack_fwd_rows_cuda``; the distance is the record's last float) and takes
+the tiles heaviest first (``tile_order_cuda``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from gaussian_splatting_torch.ops.render import (
     _check_cuda_args,
     _check_layout_args,
     _tile_chunks,
+    pack_fwd_rows_cuda,
+    tile_order_cuda,
 )
 
 # feature row 6 holds the splat's camera-frame Euclidean distance
@@ -70,15 +74,18 @@ def depth_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
 def depth_fwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int,
                    alpha_threshold: float):
     """Launch kernel B5 on the current stream; same contract as
-    ``depth_fwd_plain``."""
+    ``depth_fwd_plain``.  B5 is three launches, as B1: the pack of ``feat``
+    into gaussian-major records (u, v, op, a, b, c, rdet, distance), the
+    tile order, then the walk."""
     _check_cuda_args("depth_fwd", feat, gaussian_idx, tile_starts)
     n_tiles = tile_starts.numel() - 1
     out = torch.empty(n_tiles * cc.PIXELS_PER_TILE, dtype=torch.float32,
                       device=feat.device)
-    lib = _build.library()
-    err = lib.gs_depth_fwd(
-        feat.data_ptr(), feat.shape[1], gaussian_idx.data_ptr(),
-        tile_starts.data_ptr(), n_tiles, x_tiles, float(alpha_threshold),
+    rec = pack_fwd_rows_cuda(feat)
+    order = tile_order_cuda(tile_starts)
+    err = _build.library().gs_depth_fwd(
+        rec.data_ptr(), gaussian_idx.data_ptr(), tile_starts.data_ptr(),
+        order.data_ptr(), n_tiles, x_tiles, float(alpha_threshold),
         out.data_ptr(), torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_depth_fwd")

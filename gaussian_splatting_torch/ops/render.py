@@ -7,10 +7,11 @@ Pallas kernel ``gaussian_splatting_tpu/ops/render.py::_fwd_kernel``), on a
 CPU tensor it runs ``render_fwd_plain``, the plain PyTorch version of the
 same function.  There is no fallback from one to the other.  The kernel's
 source note says what bounds it on the H100 and what its design does
-about that.  On the card B1 (and B3, ``ops/render_sh.py``) first packs the
-feature rows into gaussian-major records (``pack_fwd_rows_cuda``, plain
-version ``pack_fwd_rows_plain``) and orders the tiles heaviest first
-(``tile_order_cuda``, plain version ``tile_order_plain``).
+about that.  On the card B1 (and B3, ``ops/render_sh.py``, and B5,
+``ops/depth.py``) first packs the feature rows into gaussian-major records
+(``pack_fwd_rows_cuda``, plain version ``pack_fwd_rows_plain``) and orders
+the tiles heaviest first (``tile_order_cuda``, plain version
+``tile_order_plain``).
 
 The backward, kernel B2 (``csrc/render_bwd.cu``, replacing the Pallas
 ``_bwd_kernel``), dispatches the same way through ``render_bwd``; its plain
@@ -293,10 +294,11 @@ def packed_stride(rows: int) -> int:
 
 
 def pack_fwd_rows_plain(feat):
-    """Plain PyTorch version of the pack that B1 and B3 read
+    """Plain PyTorch version of the pack that B1, B3 and B5 read
     (``gs_pack_fwd_rows`` in ``csrc/render_fwd.cu``): (rows, N) feature
     rows -> (N, packed_stride(rows)) gaussian-major records u, v, op, a, b,
-    c, rdet, then rows 6.. (B1's colour, B3's coefficients), zero-padded.
+    c, rdet, then rows 6.. (B1's colour, B3's coefficients, B5's distance),
+    zero-padded.
     rdet = 1 / (a c - b^2) with the operations of ``_splat_chunk`` and the
     kernels' ``load_geom``, so the kernel's records agree bitwise."""
     rows, n = feat.shape
@@ -311,11 +313,11 @@ def pack_fwd_rows_plain(feat):
 def pack_fwd_rows_cuda(feat):
     """Launch the pack kernel on the current stream: the records of
     ``pack_fwd_rows_plain`` in a new (N, packed_stride(rows)) tensor."""
+    if feat.dim() != 2 or feat.shape[0] <= REC_RDET:
+        raise ValueError(f"pack_fwd_rows: feat must be (rows > 6, N), got {tuple(feat.shape)}")
     if not (feat.is_cuda and feat.dtype == torch.float32 and feat.is_contiguous()):
         raise ValueError("pack_fwd_rows: feat must be contiguous float32 on a CUDA "
                          f"device, got {feat.dtype} on {feat.device}")
-    if feat.dim() != 2 or feat.shape[0] <= REC_RDET:
-        raise ValueError(f"pack_fwd_rows: feat must be (rows > 6, N), got {tuple(feat.shape)}")
     rows, n = feat.shape
     rec = torch.empty(n, packed_stride(rows), dtype=torch.float32, device=feat.device)
     err = _build.library().gs_pack_fwd_rows(
@@ -330,7 +332,7 @@ ORDER_BUCKETS = 1024
 
 
 def tile_order_plain(tile_starts):
-    """Plain PyTorch version of the tile order that B1 and B3 walk
+    """Plain PyTorch version of the tile order that B1, B3 and B5 walk
     (``gs_tile_order`` in ``csrc/render_fwd.cu``): the tiles by splat count,
     largest first, counts of ORDER_BUCKETS - 1 and more tied, ties in tile
     order.  The kernel orders ties in any order, so its order agrees with

@@ -1,5 +1,7 @@
-"""One training step and the test-view evaluation (counterpart of
-``gaussian_splatting_tpu/trainer.py``'s ``train_step`` and ``eval_step``).
+"""One training step, the test-view evaluation and the training schedule's
+two events, opacity reset and adaptive density control (counterpart of
+``gaussian_splatting_tpu/trainer.py``'s ``train_step``, ``eval_step``,
+``reset_opacity`` and ``adaptive_density_control``).
 
 A step is render -> L1 + SSIM loss -> backward -> Adam with per-leaf
 learning rates -> densification accumulators.  ``config.use_sh_precompute``
@@ -11,9 +13,16 @@ uv-space gradients come from a zero ``uv_offset`` argument of
 ``rasterize``, as in the JAX package.  ``sh_band_for_iteration`` gives the
 band a step of the schedule renders at.
 
+The events keep the fixed-capacity slot layout: delete clears ``alive``,
+clone and split write into free slots and zero the Adam moments there, so
+a state agrees with the JAX package's slot by slot.  Each is one
+vectorised pass on the device, with no host read: the k-th candidate in
+slot order takes the k-th free slot, which is the pairing the JAX
+package's batched drains (``lax.while_loop`` over batches of ``max_new``)
+produce.
+
 Not ported here: ``train_steps_scan`` (the JAX package's multi-step
-dispatch for the TPU), and opacity reset and adaptive density control,
-which are the next slice.
+dispatch for the TPU).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from torch.profiler import record_function
 
 from gaussian_splatting_torch import optim
 from gaussian_splatting_torch.config import SplatConfig
+from gaussian_splatting_torch.geometry import inverse_sigmoid, quaternion_to_rotation
 from gaussian_splatting_torch.losses import eval_psnr_ssim, train_loss
 from gaussian_splatting_torch.rasterize import rasterize
 from gaussian_splatting_torch.structs import Camera, GaussianScene
@@ -177,6 +187,228 @@ def eval_step(
                   camera_hw, n_sh_band, bg)
     psnr, ssim_val = eval_psnr_ssim(res.image, gt)
     return res.image, psnr, ssim_val
+
+
+# ---------------------------------------------------------------------------
+# scheduled events: opacity reset, adaptive density control
+# ---------------------------------------------------------------------------
+
+
+def _zero_accumulators(state: TrainState) -> dict:
+    return dict(
+        uv_grad_accum=torch.zeros_like(state.uv_grad_accum),
+        xyz_grad_accum=torch.zeros_like(state.xyz_grad_accum),
+        grad_accum_count=torch.zeros_like(state.grad_accum_count),
+    )
+
+
+@torch.no_grad()
+def reset_opacity(state: TrainState, *, config: SplatConfig) -> TrainState:
+    """Opacity <- inverse_sigmoid(reset_opacity_value) in every slot, dead
+    ones included; zero the opacity leaf's Adam moments (the count is kept)
+    and the three densification accumulators.  Returns a new state."""
+    cap = state.alive.shape[0]
+    params = dict(state.params)
+    params["opacity"] = torch.full(
+        (cap, 1), inverse_sigmoid(config.reset_opacity_value), dtype=torch.float32,
+        device=state.alive.device)
+    opt_state = optim.mask_moments(
+        state.opt_state, torch.ones_like(state.alive), leaves=("opacity",))
+    return state._replace(params=params, opt_state=opt_state, **_zero_accumulators(state))
+
+
+def _row_norm(x):
+    """Euclidean norm of each row: the square root of the sum of squares."""
+    return torch.sqrt((x * x).sum(dim=1))
+
+
+def _nanquantile(x, q):
+    """``jnp.nanquantile(x, q)`` of a 1-D float32 x (NaN = missing) at a 0-d
+    float32 q: its linear interpolation in its operations' order, NaN when
+    nothing is left.  On the device, with no host read; unlike
+    ``torch.quantile`` it takes an empty set and more than 2**24 values."""
+    a = torch.sort(x).values  # NaN sorts last
+    counts = (~torch.isnan(a)).sum(dtype=torch.float32)
+    pos = q * (counts - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_weight = pos - low
+    low_weight = 1 - high_weight
+    zero = torch.zeros_like(pos)
+
+    def value(i):
+        i = torch.maximum(zero, torch.minimum(i, counts - 1))
+        return a.index_select(0, i.long().reshape(1)).reshape(())
+
+    return value(low) * low_weight + value(high) * high_weight
+
+
+def _scale_factor(config: SplatConfig, iteration, device):
+    """The adaptive fraction's factor (end - iteration) / (end - start) * 2,
+    in float32; 1 without adaptive fractional densification."""
+    if not config.use_adaptive_fractional_densification:
+        return torch.ones((), dtype=torch.float32, device=device)
+    it = torch.tensor(float(iteration), dtype=torch.float32, device=device)
+    return ((config.adaptive_control_end - it)
+            / (config.adaptive_control_end - config.adaptive_control_start) * 2.0)
+
+
+def _pair_free_slots(src, free):
+    """Pair the k-th slot of ``src`` with the k-th slot of ``free``, both in
+    ascending slot order, for k < min(#src, #free).  Returns (written: the
+    free slots that receive a copy, from: the slot each written slot copies,
+    taken: the sources that found a free slot), each (C,)."""
+    cap = src.shape[0]
+    src_slots = torch.argsort((~src).to(torch.uint8), stable=True)  # sources first
+    free_slots = torch.argsort((~free).to(torch.uint8), stable=True)
+    k = torch.arange(cap, device=src.device)
+    ok = (k < src.sum()) & (k < free.sum())
+    # free_slots is a permutation of the slots, so every slot gets one entry
+    written = torch.zeros_like(free).scatter(0, free_slots, ok)
+    from_slot = torch.empty_like(k).scatter(0, free_slots, src_slots)
+    taken = torch.zeros_like(src).scatter(0, src_slots, ok)
+    return written, from_slot, taken
+
+
+def _copy_slots(params, written, from_slot, overrides):
+    """Every leaf with slot ``from_slot[i]``'s row copied into each written
+    slot i; ``overrides`` maps a leaf to (C, ...) rows taken in its place,
+    also read at ``from_slot``."""
+    out = {}
+    for k, v in params.items():
+        m = written.reshape((-1,) + (1,) * (v.dim() - 1))
+        out[k] = torch.where(m, overrides.get(k, v)[from_slot], v)
+    return out
+
+
+@torch.no_grad()
+def adaptive_density_control(state: TrainState, generator: torch.Generator,
+                             iteration, *, config: SplatConfig):
+    """Delete, clone and split on the fixed-capacity slots: (new state,
+    stats), stats a dict of 0-d tensors n_deleted, n_clone, n_split,
+    n_alive, uv_split_val, skip_densify, cap_hit, clone_deferred,
+    split_deferred, as the JAX package reports them.
+
+    In order:
+    - delete: keep a gaussian whose pre-sigmoid opacity exceeds
+      inverse_sigmoid(delete_opacity_threshold) and that was seen (count >
+      0) with a nonzero uv gradient; the second test is dropped when no
+      slot was seen since the last event (every step skipped).  n_deleted
+      is counted even with use_delete off; freed slots get zero moments.
+    - signals: accumulators over max(count, 1); with fractional
+      densification the uv threshold is the quantile, over the slots alive
+      after the delete, at 1 - (1 - uv_grad_percentile) * factor.
+      skip_densify (n_alive > max_gaussians) densifies nothing.
+    - clone (small gaussians): the k-th candidate in slot order goes to the
+      k-th free slot, moved by -0.01 times its mean xyz gradient, with zero
+      moments; the copy inherits the densify flag and largest scale.
+      clone_deferred counts the candidates left when the free slots ran
+      out.
+    - split (large gaussians, and those above the scale quantile over the
+      slots alive after the clone): two samples xyz + R(q / |q|) (r *
+      exp(scale)), r ~ U[0, 1)^3, drawn in the original ellipsoid; sample 1
+      overwrites the source, sample 2 goes to the k-th free slot left after
+      the clone; both take scale log(exp(scale) / split_scale_factor) and
+      zero moments.  split_deferred counts sources whose second sample
+      found no slot.  The uniforms come from ``generator`` (on the state's
+      device): one (C, 3) draw for every sample 1, then one for every
+      sample 2, row s for the source in slot s.
+    - the accumulators are zeroed; the Adam count is kept.
+
+    ``iteration`` is the training iteration (an int).  The stats stay on
+    the device; the caller reads them once.
+    """
+    cap = state.alive.shape[0]
+    dev = state.alive.device
+    params, alive, adam = dict(state.params), state.alive, state.opt_state
+    count = state.grad_accum_count
+    i32 = torch.int32
+
+    # delete
+    keep = params["opacity"][:, 0] > inverse_sigmoid(config.delete_opacity_threshold)
+    had_signal = (count > 0).any()
+    keep = keep & (((count > 0) & (_row_norm(state.uv_grad_accum) > 0.0)) | ~had_signal)
+    freed = alive & ~keep
+    n_deleted = freed.sum(dtype=i32)
+    if config.use_delete:
+        alive = alive & keep
+        adam = optim.mask_moments(adam, freed)
+    skip_densify = alive.sum(dtype=i32) > config.max_gaussians
+
+    # densification signals
+    cnt = count.clamp_min(1).to(torch.float32)[:, None]
+    uv_avg_norm = _row_norm(state.uv_grad_accum / cnt)
+    xyz_grad_avg = state.xyz_grad_accum / cnt
+    factor = _scale_factor(config, iteration, dev)
+    nan = torch.full_like(uv_avg_norm, float("nan"))
+    if config.use_fractional_densification:
+        uv_pct = 1.0 - (1.0 - config.uv_grad_percentile) * factor
+        uv_split_val = _nanquantile(torch.where(alive, uv_avg_norm, nan),
+                                    uv_pct.clamp(0.0, 1.0))
+    else:
+        uv_split_val = torch.tensor(config.uv_grad_threshold, dtype=torch.float32,
+                                    device=dev)
+    densify = alive & (uv_avg_norm > uv_split_val) & ~skip_densify
+    scale_max = torch.exp(params["scale"]).amax(dim=1)
+    clone_mask = densify & (scale_max <= config.clone_scale_threshold)
+    n_clone = clone_mask.sum(dtype=i32)
+
+    # clone
+    clone_deferred = torch.zeros((), dtype=i32, device=dev)
+    if config.use_clone:
+        written, from_slot, taken = _pair_free_slots(clone_mask, ~alive)
+        params = _copy_slots(params, written, from_slot,
+                             dict(xyz=params["xyz"] - xyz_grad_avg * 0.01))
+        alive = alive | written
+        adam = optim.mask_moments(adam, written)
+        densify = torch.where(written, densify[from_slot], densify)
+        scale_max = torch.where(written, scale_max[from_slot], scale_max)
+        clone_deferred = (clone_mask & ~taken).sum(dtype=i32)
+
+    # split
+    scale_pct = 1.0 - (1.0 - config.scale_norm_percentile) * factor
+    scale_split = _nanquantile(torch.where(alive, scale_max, nan), scale_pct.clamp(0.0, 1.0))
+    split_mask = densify & (scale_max > config.clone_scale_threshold)
+    split_mask = (split_mask | (alive & (scale_max > scale_split) & ~skip_densify)) & alive
+    n_split = split_mask.sum(dtype=i32)
+
+    split_deferred = torch.zeros((), dtype=i32, device=dev)
+    if config.use_split:
+        if config.num_split_samples != 2:
+            raise ValueError("the fixed-capacity split draws 2 samples, got "
+                             f"num_split_samples={config.num_split_samples}")
+        xyz, scale, quat = params["xyz"], params["scale"], params["quaternion"]
+        r1 = torch.rand(cap, 3, generator=generator, device=dev)
+        r2 = torch.rand(cap, 3, generator=generator, device=dev)
+        scales = torch.exp(scale)
+        rot = quaternion_to_rotation(quat / _row_norm(quat)[:, None])
+        # both samples in the original ellipsoid, before any write
+        sample1 = xyz + torch.einsum("nij,nj->ni", rot, r1 * scales)
+        sample2 = xyz + torch.einsum("nij,nj->ni", rot, r2 * scales)
+        new_scale = torch.log(scales / config.split_scale_factor)
+        in_place = split_mask[:, None]
+        params = {**params, "xyz": torch.where(in_place, sample1, xyz),
+                  "scale": torch.where(in_place, new_scale, scale)}
+        written, from_slot, taken = _pair_free_slots(split_mask, ~alive)
+        params = _copy_slots(params, written, from_slot,
+                             dict(xyz=sample2, scale=new_scale))
+        alive = alive | written
+        adam = optim.mask_moments(adam, split_mask | written)
+        split_deferred = (split_mask & ~taken).sum(dtype=i32)
+
+    new_state = state._replace(params=params, alive=alive, opt_state=adam,
+                               **_zero_accumulators(state))
+    stats = dict(
+        n_deleted=n_deleted,
+        n_clone=n_clone,
+        n_split=n_split,
+        n_alive=alive.sum(dtype=i32),
+        uv_split_val=uv_split_val,
+        skip_densify=skip_densify,
+        cap_hit=(clone_deferred > 0) | (split_deferred > 0),
+        clone_deferred=clone_deferred,
+        split_deferred=split_deferred,
+    )
+    return new_state, stats
 
 
 def sh_band_for_iteration(config: SplatConfig, iteration: int) -> int:

@@ -23,6 +23,7 @@ import torch
 
 from gaussian_splatting_torch import _build
 from gaussian_splatting_torch.ops import common as cc
+from gaussian_splatting_torch.ops import depth as tdepth
 from gaussian_splatting_torch.ops import render as trender
 from gaussian_splatting_torch.ops import render_sh as trsh
 from gaussian_splatting_torch.structs import TILE_PX
@@ -145,11 +146,13 @@ def _check_batches(layout, batch):
         assert int(counts.max()) > batch, counts
 
 
-@pytest.mark.parametrize("rows", [cc.N_FEAT] + [trsh.sh_feat_rows(n) for n in trsh.KERNEL_N_SH])
+@pytest.mark.parametrize("rows", [cc.N_FEAT] + [trsh.sh_feat_rows(n) for n in trsh.KERNEL_N_SH]
+                         + [tdepth.N_DEPTH_FEAT])
 def test_pack_layout_and_rdet(rows):
     """Records u, v, op, a, b, c, rdet, rows 6.., zero-padded to a multiple
-    of 4 (12 floats for B1; 20, 36, 56 for B3 at n_sh 4, 9, 16); rdet bitwise
-    the walk's own (``_splat_chunk``, the kernels' ``load_geom``)."""
+    of 4 (12 floats for B1; 20, 36, 56 for B3 at n_sh 4, 9, 16; 8 for B5,
+    whose distance is float 7, with no padding); rdet bitwise the walk's own
+    (``_splat_chunk``, the kernels' ``load_geom``)."""
     n = 37
     gen = torch.Generator().manual_seed(rows)
     feat = torch.randn(rows, n, generator=gen)
