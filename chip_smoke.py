@@ -23,7 +23,16 @@ counters, that each went through its kernels:
   steps (kernels B1, B2);
 - the TPU probes E1-E3 (gaussian_splatting_torch/experiments): each
   probe's full sweep, every point's kernel against its plain version,
-  with kernel, plain and library-call times and the bound.
+  with kernel, plain and library-call times and the bound;
+- the training CLI: train_torch.main on the synthetic reference-scale scene
+  of runs/refscale7k/config.yaml (1,200,000 secret points, 96 ring views at
+  1296x840, 200,000 init points in 2,097,152 slots, DC colour path; kernel
+  B1 for the ground truth, steps and evals, B2 for steps), cut to 400
+  iterations with three ADC events, an opacity reset, every SH band,
+  evals, a debug image and a periodic checkpoint, then a second call that
+  resumes from that checkpoint for 50 iterations; checked for the launch
+  counts the schedule implies, finite parameters, a growing scene, a
+  rising test PSNR and the run's files.
 
 B1, B3 and B5 each launch a pack of the feature rows into gaussian-major
 records first (gs_pack_fwd_rows), held bitwise against its plain version,
@@ -41,6 +50,7 @@ of standard output is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary.
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -98,6 +108,25 @@ ADC_ITERATION = 1000
 # sample's position, up to 4 ulps of its largest coordinate over the scale
 BOX_TOL = 1e-4
 BOX_ULPS = 4
+
+# the training CLI: the synthetic reference-scale scene of
+# runs/refscale7k/config.yaml at full width, its 7,000 iterations cut to
+# CLI_ITERS with the schedule compressed into them: ADC at 100, 200, 300, an
+# opacity reset at 250, SH bands at 100, 200, 300, evals at 0, 200 and the
+# end, a debug image and a checkpoint at 200, a torch.profiler trace of 2
+# steps; then a resume from the checkpoint to CLI_RESUME_ITERS
+REFSCALE_CONFIG = os.path.join(ROOT, "runs", "refscale7k", "config.yaml")
+CLI_ITERS = 400
+CLI_RESUME_ITERS = 250
+CLI_CHECKPOINT = 200
+CLI_SCHEDULE = dict(
+    num_iters=CLI_ITERS, test_eval_interval=200, print_interval=50,
+    adaptive_control_start=50, adaptive_control_interval=100, adaptive_control_end=350,
+    reset_opacity_start=200, reset_opacity_interval=250, reset_opacity_end=300,
+    add_sh_band_interval=100, save_debug_image_interval=CLI_CHECKPOINT,
+    checkpoint_interval=CLI_CHECKPOINT, profile_start=20, profile_steps=2,
+)
+CLI_ADC_ITERS = [100, 200, 300]
 
 # The H100 SXM's peaks (NVIDIA's data sheet, at its 700 W limit): device
 # memory and float32 outside the tensor cores.  A kernel's bound is the
@@ -966,6 +995,202 @@ def adc_phase(setup, cfg, smi):
     return dict(launches), adc_ms, reset_ms
 
 
+def cli_argv(out, **overrides):
+    """train_torch.py's arguments: the synthetic preset at the fields of
+    runs/refscale7k/config.yaml (read by the port's own YAML reader), with
+    ``overrides``, on DEVICE."""
+    import dataclasses
+
+    from gaussian_splatting_torch.config import SplatConfig
+
+    with open(REFSCALE_CONFIG) as f:
+        cfg = SplatConfig.from_yaml(f.read()).replace(output_dir=out, **overrides)
+    argv = ["synthetic", "--device", DEVICE]
+    for k, v in dataclasses.asdict(cfg).items():
+        if v is None or isinstance(v, tuple):
+            v = ",".join(str(x) for x in v or ())
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+@contextlib.contextmanager
+def call_times(owner, name, times, sync):
+    """Record the host-clock (start, end) of every call of owner.name in
+    ``times`` while the block runs; with ``sync`` the device is synchronised
+    before the end is read."""
+    import torch
+
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        times.append((t0, time.perf_counter()))
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
+    """A train_torch run's checks: launches the schedule implies (B1 for
+    each ground-truth view, step, eval view and debug image, B2 for each
+    step, no other kernel), finite parameters, its iterations and the
+    metrics file's keys."""
+    import torch
+
+    from gaussian_splatting_torch.structs import GSMetricsLog
+
+    m = runner.metrics
+    steps = len(m.train_psnr)
+    debug = sorted(f for f in os.listdir(out) if f.startswith("debug_iter"))
+    want = {"render_fwd": len(runner.data.images) + steps
+            + len(m.eval_iters) * len(runner.test_split) + len(debug),
+            "render_bwd": steps}
+    print(f"[{tag}] launches {launches}: {len(runner.data.images)} ground-truth views, "
+          f"{steps} steps, {len(m.eval_iters)} evals of {len(runner.test_split)} views, "
+          f"{len(debug)} debug images")
+    if launches != want:
+        raise AssertionError(f"{tag}: expected launches {want}, got {launches}")
+    if runner.start_iter != start_iter or steps != num_iters - start_iter:
+        raise AssertionError(f"{tag}: started at {runner.start_iter} with {steps} steps")
+    if m.eval_iters[0] != start_iter or m.eval_iters[-1] != num_iters:
+        raise AssertionError(f"{tag}: evals at {m.eval_iters}")
+    for k, v in runner.state.params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag}: params['{k}'] not finite")
+    if not all(np.isfinite(m.train_psnr + m.test_psnr)):
+        raise AssertionError(f"{tag}: a PSNR is not finite")
+    with open(os.path.join(out, "metrics.json")) as f:
+        saved = json.load(f)
+    if saved.keys() != GSMetricsLog().to_dict().keys() or saved["eval_iters"] != m.eval_iters:
+        raise AssertionError(f"{tag}: metrics.json {sorted(saved)}")
+    return saved
+
+
+def cli_phase(smi):
+    """The training CLI on the synthetic reference-scale scene: one run of
+    CLI_ITERS iterations, its checks and numbers, one profiled step at its
+    final state, then a run resumed from its periodic checkpoint.  Returns
+    the B1 and B2 launches of the two runs."""
+    import shutil
+
+    import torch
+
+    import train_torch
+    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import checkpoint as ckpt
+    from gaussian_splatting_torch.runner import TrainingRunner
+
+    totals = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, out2 = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+        print(f"[cli] {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free for the "
+              f"runs' files; {smi}")
+        steps, evals, events = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with call_times(trainer, "train_step", steps, sync=False), \
+                call_times(TrainingRunner, "evaluate", evals, sync=True), \
+                call_times(TrainingRunner, "_densify", events, sync=True):
+            runner = train_torch.main(cli_argv(out, **CLI_SCHEDULE))
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        totals.update(launches)
+        peak_mem = torch.cuda.max_memory_allocated()
+        m = runner.metrics
+        saved = check_cli_run(runner, out, launches, 0, CLI_ITERS, "cli")
+        alive = [e["alive"] for e in m.adc_events]
+        if [e["iter"] for e in saved["adc_events"]] != CLI_ADC_ITERS:
+            raise AssertionError(f"[cli] ADC events {saved['adc_events']}")
+        n_init = runner.config.synthetic_init_points
+        if m.num_gaussians[0] != n_init or not (alive[0] > n_init and alive[-1] > n_init):
+            raise AssertionError(f"[cli] the scene did not grow from {n_init}: {alive}")
+        if not m.test_psnr[-1] > m.test_psnr[0]:
+            raise AssertionError(f"[cli] test PSNR did not rise: {m.test_psnr}")
+        state, it, _ = ckpt.load_checkpoint(os.path.join(out, "ckpt_final.npz"),
+                                            runner.config, device=DEVICE)
+        if it != CLI_ITERS or not torch.equal(state.alive, runner.state.alive):
+            raise AssertionError("[cli] ckpt_final.npz does not hold the final state")
+        del state
+        n_alive = int(runner.state.alive.sum())
+        ply = ckpt.import_ply(os.path.join(out, "scene_final.ply"), device="cpu")
+        if ply.num_alive() != n_alive:
+            raise AssertionError(f"[cli] scene_final.ply has {ply.num_alive()} of {n_alive}")
+        if not os.path.isfile(os.path.join(out, "trace", "trace.json")):
+            raise AssertionError("[cli] no torch.profiler trace")
+
+        step_ms = np.diff([a for a, _ in steps]) * 1e3
+        median_ms = float(np.median(step_ms))
+        eval_ms = [(b - a) * 1e3 for a, b in evals]
+        adc_ms = [(b - a) * 1e3 for a, b in events]
+        n_test = len(runner.test_split)
+        cfg = runner.config
+        print(f"[cli] {CLI_ITERS} iterations of {len(runner.data.images)} views at "
+              f"{cfg.synthetic_width}x{cfg.synthetic_height}, "
+              f"{runner.data.xyz.shape[0]} ground-truth gaussians, "
+              f"{n_init} init points in {runner.state.alive.shape[0]} slots: "
+              f"{run_s:.1f} s for train_torch.main ({smi})")
+        print(f"[cli] step under the runner: median {median_ms:.3f} ms between step "
+              f"starts over {len(step_ms)} intervals, min {step_ms.min():.3f}, p90 "
+              f"{np.percentile(step_ms, 90):.3f} (host clock; {smi})")
+        print(f"[cli] ground truth: {runner.gt_seconds * 1e3 / len(runner.data.images):.3f} "
+              f"ms per view, peak {runner.gt_peak_splats} splats in a view ({smi})")
+        print(f"[cli] ADC events at {CLI_ADC_ITERS}: "
+              f"{', '.join(f'{x:.3f}' for x in adc_ms)} ms, alive {alive} "
+              f"(host clock to the stats' read; {smi})")
+        print(f"[cli] evals at {m.eval_iters}: {', '.join(f'{x:.3f}' for x in eval_ms)} ms "
+              f"for {n_test} views, {np.median(eval_ms) / n_test:.3f} ms per view "
+              f"(host clock; {smi})")
+        print(f"[cli] test PSNR at {m.eval_iters}: "
+              f"{', '.join(f'{x:.4f}' for x in m.test_psnr)}; SSIM "
+              f"{', '.join(f'{x:.4f}' for x in m.test_ssim)} ({smi})")
+        print(f"[cli] peak {runner.peak_splats} splats in a train step, truncated "
+              f"{m.truncated_cells} cells in {m.truncated_steps} steps; peak device "
+              f"memory {peak_mem / 2**30:.3f} GiB (max_memory_allocated; {smi})")
+        idx = int(runner.train_split[0])
+        cam, pose = runner._camera(idx)
+        kw = dict(config=runner.config, camera_hw=(cam.height, cam.width),
+                  n_sh_band=trainer.sh_band_for_iteration(runner.config, CLI_ITERS))
+        gt = runner.gt_image_dev(idx)
+        bg = runner.background_for(CLI_ITERS - 1)
+        busy_ms = profile_step(lambda: trainer.train_step(runner.state, gt, cam.K, pose,
+                                                          bg, **kw), median_ms, "cli")
+        print(f"[cli] device busy {busy_ms:.3f} ms of the {median_ms:.3f} ms step: host "
+              f"share {1 - busy_ms / median_ms:.3f} ({smi})")
+        del runner, gt, bg, cam, pose
+        os.remove(os.path.join(out, "ckpt_final.npz"))
+
+        # resume from the periodic checkpoint
+        path = os.path.join(out, f"ckpt_iter_{CLI_CHECKPOINT}.npz")
+        with np.load(path) as z:
+            saved_alive = int(z["alive"].sum())
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        runner = train_torch.main(cli_argv(
+            out2, **dict(CLI_SCHEDULE, num_iters=CLI_RESUME_ITERS, profile_steps=0),
+            load_checkpoint=True, checkpoint_path=path))
+        resume_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        totals.update(launches)
+        m = runner.metrics
+        check_cli_run(runner, out2, launches, CLI_CHECKPOINT, CLI_RESUME_ITERS, "cli-resume")
+        if m.num_gaussians[0] != saved_alive:
+            raise AssertionError(f"[cli-resume] started from {m.num_gaussians[0]} "
+                                 f"gaussians, the checkpoint holds {saved_alive}")
+        print(f"[cli-resume] resumed at iteration {runner.start_iter} from {saved_alive} "
+              f"gaussians, {len(m.train_psnr)} steps to {CLI_RESUME_ITERS}; test PSNR at "
+              f"{m.eval_iters}: {', '.join(f'{x:.4f}' for x in m.test_psnr)}; "
+              f"{resume_s:.1f} s ({smi})")
+    return dict(totals)
+
+
 # the TPU probes: launch counter, name, source, the TPU kernel it replaces
 # and the sweep point that stands for it in the kernels line
 PROBES = (
@@ -1043,7 +1268,8 @@ KERNEL_PARTS = (
 
 def profile_step(step, median_ms, tag):
     """One training step under torch.profiler: device time by part of the
-    step and by kernel, and the device's idle share of a step.
+    step and by kernel, and the device's idle share of a step.  Returns the
+    device-busy ms.
 
     The trainer's record_function ranges (gs::render, gs::layout, gs::loss,
     gs::adam) appear on the device timeline as spans; a kernel belongs to
@@ -1101,6 +1327,7 @@ def profile_step(step, median_ms, tag):
     # the full table goes to standard error, out of the way of the summary
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40),
           file=sys.stderr)
+    return busy_ms
 
 
 def check_goldens(fx, fx_cam, fx_pose, fx_alpha, dev):
@@ -1378,6 +1605,10 @@ def main():
     with phase("probes"):
         probes, probe_launches = run_probes(smi)
 
+    # 11. the training CLI on the synthetic reference-scale scene
+    with phase("training CLI"):
+        cli_launches = cli_phase(smi)
+
     def entry(key, name, source, replaces, launches, err, **extra):
         ms, plain_ms = times[key]
         bound_ms, bound_by = bounds[key]
@@ -1392,7 +1623,7 @@ def main():
               "gaussian_splatting_torch/csrc/render_fwd.cu",
               "gaussian_splatting_tpu/ops/render.py:525",
               launches["render_fwd"] + train_launches["render_fwd"]
-              + adc_launches["render_fwd"], img_err,
+              + adc_launches["render_fwd"] + cli_launches["render_fwd"], img_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("depth_fwd", "depth_fwd (B5, depth)",
@@ -1404,7 +1635,8 @@ def main():
         entry("render_bwd", "render_bwd (B2, DC backward)",
               "gaussian_splatting_torch/csrc/render_bwd.cu",
               "gaussian_splatting_tpu/ops/render.py:635",
-              train_launches["render_bwd"] + adc_launches["render_bwd"], b2_abs,
+              train_launches["render_bwd"] + adc_launches["render_bwd"]
+              + cli_launches["render_bwd"], b2_abs,
               max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
               "gaussian_splatting_torch/csrc/render_sh_fwd.cu",

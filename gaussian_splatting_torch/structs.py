@@ -1,5 +1,5 @@
-"""Cameras, the gaussian scene and tile grids (counterpart of
-``gaussian_splatting_tpu/structs.py``).
+"""Cameras, the gaussian scene, tile grids and the training run's metrics
+log (counterpart of ``gaussian_splatting_tpu/structs.py``).
 
 Parameterisation matches the reference: ``opacity`` is pre-sigmoid,
 ``scale`` is log-space, ``quaternion`` is wxyz (normalised on use, not on
@@ -24,6 +24,39 @@ TILE_PX = 16
 MAX_SH_COEFFS = 16
 
 PARAM_NAMES = ("xyz", "rgb", "opacity", "scale", "quaternion", "sh")
+
+
+class GSMetricsLog:
+    """A training run's record, written to ``metrics.json``: train PSNR and
+    gaussian count per step, test PSNR/SSIM per evaluation, the ADC events,
+    and the steps and cells lost to the window truncation
+    (``culling.MAX_WINDOW_CELLS``).  ``overflow_steps`` is the JAX
+    package's capacity-overflow count; the port has no capacities, so it
+    stays 0.  The keys are the JAX package's."""
+
+    def __init__(self):
+        self.train_psnr = []
+        self.test_psnr = []
+        self.test_ssim = []
+        self.eval_iters = []
+        self.num_gaussians = []
+        self.adc_events = []  # dicts: iter, deleted, cloned, split, alive, cap_hit
+        self.overflow_steps = 0
+        self.truncated_steps = 0
+        self.truncated_cells = 0
+
+    def to_dict(self) -> dict:
+        return dict(
+            train_psnr=self.train_psnr,
+            test_psnr=self.test_psnr,
+            test_ssim=self.test_ssim,
+            eval_iters=self.eval_iters,
+            num_gaussians=self.num_gaussians,
+            adc_events=self.adc_events,
+            overflow_steps=self.overflow_steps,
+            truncated_steps=self.truncated_steps,
+            truncated_cells=self.truncated_cells,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

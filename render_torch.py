@@ -1,21 +1,23 @@
 #!/usr/bin/env python
 """Render a trained scene with the PyTorch/CUDA port.
 
-The port's twin of render.py: loads a JAX checkpoint (.npz) or a 3DGS .ply
-and renders a circular orbit around the scene, optionally with depth maps.
-On a CUDA device the rasterizer and the depth renderer run their
-hand-written kernels.
+The port's twin of render.py: loads a checkpoint (.npz, of either package)
+or a 3DGS .ply and renders the views of a COLMAP dataset or a circular
+orbit around the scene, optionally with depth maps.  On a CUDA device the
+rasterizer and the depth renderer run their hand-written kernels.
 
     python render_torch.py runs/refscale7k/scene_final.ply --orbit 4 --depth
     python render_torch.py scene.ply --orbit 2 --device cpu --out renders/
+    python render_torch.py ckpt_final.npz --dataset_path garden \
+        --downsample_factor 4 --out renders/ --depth
 """
 
 import argparse
 import os
-import struct
-import zlib
 
 import numpy as np
+
+from gaussian_splatting_torch.dataio.png import write_png
 
 
 def build_parser():
@@ -24,10 +26,10 @@ def build_parser():
     p.add_argument("scene", help="ckpt .npz or 3DGS .ply")
     p.add_argument("--out", default="renders")
     p.add_argument("--dataset_path", default="",
-                   help="dataset views need the dataio port (not yet); "
-                   "use --orbit")
+                   help="COLMAP dataset whose views to render")
+    p.add_argument("--downsample_factor", type=int, default=4)
     p.add_argument("--orbit", type=int, default=0,
-                   help="render N orbit views")
+                   help="render N orbit views instead of dataset views")
     p.add_argument("--width", type=int, default=1296)
     p.add_argument("--height", type=int, default=840)
     p.add_argument("--focal", type=float, default=1100.0)
@@ -64,26 +66,6 @@ def orbit_poses(xyz, n, height_frac=0.15):
     return poses
 
 
-def write_png(path, img):
-    """Write an (H, W) or (H, W, 3) uint8 array as an 8-bit PNG."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w = img.shape[:2]
-    colour = 2 if img.ndim == 3 else 0  # truecolour or greyscale
-    rows = img.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
-
-    def chunk(kind, data):
-        body = kind + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
-
-
 def load_scene(path, device):
     from gaussian_splatting_torch import checkpoint as ckpt
 
@@ -92,10 +74,12 @@ def load_scene(path, device):
     return ckpt.load_npz_scene(path, device=device)
 
 
-def render_views(scene_path, *, out, orbit, width=1296, height=840,
-                 focal=1100.0, sh_band=3, depth=False, alpha_threshold=0.5,
-                 device):
-    """Render ``orbit`` views of a scene file and write PNGs under ``out``.
+def render_views(scene_path, *, out, orbit=0, dataset_path="", downsample_factor=4,
+                 width=1296, height=840, focal=1100.0, sh_band=3, depth=False,
+                 alpha_threshold=0.5, device):
+    """Render a scene file from ``orbit`` orbit views (width x height at
+    ``focal``), or else from every view of the COLMAP dataset at
+    ``dataset_path``, and write PNGs under ``out``.
 
     Returns one dict per view: name, image (H, W, 3) and depth (H, W) or
     None on ``device``, num_splats, num_visible and truncated.
@@ -106,26 +90,38 @@ def render_views(scene_path, *, out, orbit, width=1296, height=840,
     from gaussian_splatting_torch.rasterize import rasterize, render_depth
     from gaussian_splatting_torch.structs import Camera
 
-    if orbit <= 0:
-        raise ValueError("render_views needs orbit > 0: dataset views wait "
-                         "for the dataio port")
     cfg = SplatConfig()
     scene = load_scene(scene_path, device)
     params = {k: v.detach() for k, v in scene.params().items()}
     alive = scene.alive
     print(f"{scene_path}: {scene.num_alive()} gaussians on {device}")
 
+    # (name, K, camera_T_world, width, height) of each view
+    if orbit > 0:
+        xyz = params["xyz"][alive].cpu().numpy()
+        K = np.array([[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]],
+                     np.float32)
+        cams = [(f"orbit_{j:03d}", K, pose, width, height)
+                for j, pose in enumerate(orbit_poses(xyz, orbit))]
+    elif dataset_path:
+        from gaussian_splatting_torch.dataio.dataset import ColmapDataset
+
+        data = ColmapDataset(dataset_path, downsample_factor).scene_data()
+        cams = []
+        for j, im in enumerate(data.images):
+            c = data.cameras[im.camera_id]
+            cams.append((f"view_{j:03d}", c.K, im.camera_T_world, c.width, c.height))
+    else:
+        raise ValueError("render_views needs orbit > 0 or a dataset_path")
+
     os.makedirs(out, exist_ok=True)
-    xyz = params["xyz"][alive].cpu().numpy()
-    K = torch.tensor([[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]],
-                     dtype=torch.float32, device=device)
-    cam = Camera(K=K, width=width, height=height)
     background = torch.zeros(3, dtype=torch.float32, device=device)
     views = []
     with torch.no_grad():
-        for j, pose in enumerate(orbit_poses(xyz, orbit)):
-            name = f"orbit_{j:03d}"
-            pose_t = torch.from_numpy(pose).to(device)
+        for name, K, pose, width, height in cams:
+            cam = Camera(K=torch.tensor(K, dtype=torch.float32, device=device),
+                         width=width, height=height)
+            pose_t = torch.tensor(pose, dtype=torch.float32, device=device)
             res = rasterize(
                 params, alive, pose_t, cam,
                 near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
@@ -162,13 +158,11 @@ def render_views(scene_path, *, out, orbit, width=1296, height=840,
 def main():
     parser = build_parser()
     args = parser.parse_args()
-    if args.dataset_path:
-        parser.error("--dataset_path needs the dataio port, which is not "
-                     "done yet; render orbit views with --orbit N")
-    if args.orbit <= 0:
-        parser.error("give --orbit N (dataset views are not ported yet)")
+    if args.orbit <= 0 and not args.dataset_path:
+        parser.error("give --orbit N or --dataset_path DIR")
     render_views(
-        args.scene, out=args.out, orbit=args.orbit, width=args.width,
+        args.scene, out=args.out, orbit=args.orbit, dataset_path=args.dataset_path,
+        downsample_factor=args.downsample_factor, width=args.width,
         height=args.height, focal=args.focal, sh_band=args.sh_band,
         depth=args.depth, alpha_threshold=args.alpha_threshold,
         device=args.device,

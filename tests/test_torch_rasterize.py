@@ -159,7 +159,8 @@ def _png_shape(path):
 
 def test_render_torch_cli(tmp_path):
     """render_torch.py on the CPU renders an exported fixture scene into
-    orbit PNGs with nonzero splat counts, and refuses dataset views."""
+    orbit PNGs with nonzero splat counts, and a dataset path without a
+    reconstruction fails naming the missing file."""
     s = fx.test_scene(opacity_presigmoid=True)
     scene = convert.scene_from_numpy(
         {k: np.asarray(v) for k, v in s.params().items()}, np.asarray(s.alive), "cpu")
@@ -182,7 +183,8 @@ def test_render_torch_cli(tmp_path):
 
     bad = subprocess.run(cmd[:3] + ["--dataset_path", "garden", "--device", "cpu"],
                          env=env, capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0 and "dataio" in bad.stderr
+    assert bad.returncode != 0 and "FileNotFoundError" in bad.stderr
+    assert os.path.join("garden", "sparse", "0", "points3D.bin") in bad.stderr
 
 
 # --- the per-pixel SH path (use_sh_precompute=False) -------------------------
