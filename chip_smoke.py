@@ -32,7 +32,20 @@ counters, that each went through its kernels:
   evals, a debug image and a periodic checkpoint, then a second call that
   resumes from that checkpoint for 50 iterations; checked for the launch
   counts the schedule implies, finite parameters, a growing scene, a
-  rising test PSNR and the run's files.
+  rising test PSNR and the run's files;
+- multi-GPU (gaussian_splatting_torch/parallel; the card is one, so ranks
+  share it over gloo and NCCL runs at world size 1): (a) one NCCL rank's
+  mp_train_step and dp_train_step against trainer.train_step on garden
+  view 0; (b) two ranks' mp_render against rasterize on both colour paths
+  (B1, B3 on band grids), mp_train_step against train_step on both (B2,
+  B4) and dp_train_step against the mean of two views' gradients; (c)
+  dryrun_multigpu(4); (d) train_torch.main --model_parallel 2 on the
+  reference-scale scene, 150 iterations with ADC at 50 and 100 and a
+  checkpoint at 100 read back and held to each rank's shard; (e) the same
+  with --data_parallel 2 for 60 iterations, the replicas' checksums equal
+  after the ADC and at the end.  It prints ms per step, collective ms,
+  device busy and peak memory per rank, and adds every rank's launches to
+  the kernels line.
 
 B1, B3 and B5 each launch a pack of the feature rows into gaussian-major
 records first (gs_pack_fwd_rows), held bitwise against its plain version,
@@ -1014,10 +1027,11 @@ def cli_argv(out, **overrides):
 
 
 @contextlib.contextmanager
-def call_times(owner, name, times, sync):
+def call_times(owner, name, times, sync, after=None):
     """Record the host-clock (start, end) of every call of owner.name in
     ``times`` while the block runs; with ``sync`` the device is synchronised
-    before the end is read."""
+    before the end is read.  ``after``, if given, is called with each call's
+    arguments once it has returned."""
     import torch
 
     fn = getattr(owner, name)
@@ -1028,6 +1042,8 @@ def call_times(owner, name, times, sync):
         if sync:
             torch.cuda.synchronize()
         times.append((t0, time.perf_counter()))
+        if after is not None:
+            after(*args, **kwargs)
         return out
 
     setattr(owner, name, timed)
@@ -1041,7 +1057,8 @@ def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
     """A train_torch run's checks: launches the schedule implies (B1 for
     each ground-truth view, step, eval view and debug image, B2 for each
     step, no other kernel), finite parameters, its iterations and the
-    metrics file's keys."""
+    metrics file's keys; on a rank of a parallel run, its own launches and
+    state, and the eval checks only where it evaluates."""
     import torch
 
     from gaussian_splatting_torch.structs import GSMetricsLog
@@ -1059,7 +1076,7 @@ def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
         raise AssertionError(f"{tag}: expected launches {want}, got {launches}")
     if runner.start_iter != start_iter or steps != num_iters - start_iter:
         raise AssertionError(f"{tag}: started at {runner.start_iter} with {steps} steps")
-    if m.eval_iters[0] != start_iter or m.eval_iters[-1] != num_iters:
+    if runner.evaluates and (m.eval_iters[0] != start_iter or m.eval_iters[-1] != num_iters):
         raise AssertionError(f"{tag}: evals at {m.eval_iters}")
     for k, v in runner.state.params.items():
         if not bool(torch.isfinite(v).all()):
@@ -1068,7 +1085,8 @@ def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
         raise AssertionError(f"{tag}: a PSNR is not finite")
     with open(os.path.join(out, "metrics.json")) as f:
         saved = json.load(f)
-    if saved.keys() != GSMetricsLog().to_dict().keys() or saved["eval_iters"] != m.eval_iters:
+    if saved.keys() != GSMetricsLog().to_dict().keys() or (
+            runner.evaluates and saved["eval_iters"] != m.eval_iters):
         raise AssertionError(f"{tag}: metrics.json {sorted(saved)}")
     return saved
 
@@ -1188,6 +1206,436 @@ def cli_phase(smi):
               f"gaussians, {len(m.train_psnr)} steps to {CLI_RESUME_ITERS}; test PSNR at "
               f"{m.eval_iters}: {', '.join(f'{x:.4f}' for x in m.test_psnr)}; "
               f"{resume_s:.1f} s ({smi})")
+    return dict(totals)
+
+
+# the multi-GPU phase (gaussian_splatting_torch/parallel): the garden scene
+# padded to an even capacity for the comparisons, and the training CLI on
+# the reference-scale scene with --model_parallel 2 (ADC at 50 and 100,
+# evals at 0 and the end, a checkpoint at 100) and --data_parallel 2 (ADC
+# at 30).  The card is one: ranks share it over gloo (parallel/comm.py)
+MGPU_CAPACITY = 65_536
+MGPU_CHECKPOINT = 100
+MGPU_SCHEDULE = dict(
+    test_eval_interval=1000, print_interval=50, adaptive_control_start=0,
+    reset_opacity_start=1000, add_sh_band_interval=1000, save_debug_image_interval=0,
+    profile_steps=0)
+MGPU_RUNS = {
+    "mp": dict(MGPU_SCHEDULE, num_iters=150, model_parallel=2, adaptive_control_interval=50,
+               adaptive_control_end=101, checkpoint_interval=MGPU_CHECKPOINT),
+    "dp": dict(MGPU_SCHEDULE, num_iters=60, data_parallel=2, adaptive_control_interval=30,
+               adaptive_control_end=31, checkpoint_interval=0),
+}
+MGPU_ADC_ITERS = {"mp": [50, 100], "dp": [30]}
+# steps each rank takes after (d) and (e) with its collectives timed
+MGPU_COLL_STEPS = 3
+
+
+def _rel(got, want):
+    """Largest |got - want| over the largest |want|."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale > 0 else float(got.abs().max())
+
+
+def _step_errors(got, want, info, winfo):
+    """A parallel step's state against the single-device step's: the
+    gradient leaves (Adam's first and second moments from zero, the uv and
+    xyz accumulators) relative to each leaf's largest entry, and the exact
+    leaves."""
+    import torch
+
+    errs = {f"mu.{k}": _rel(got.opt_state.mu[k], v) for k, v in want.opt_state.mu.items()}
+    errs.update({f"nu.{k}": _rel(got.opt_state.nu[k], v) for k, v in want.opt_state.nu.items()})
+    errs["uv_grad_accum"] = _rel(got.uv_grad_accum, want.uv_grad_accum)
+    errs["xyz_grad_accum"] = _rel(got.xyz_grad_accum, want.xyz_grad_accum)
+    exact = (torch.equal(got.alive, want.alive)
+             and torch.equal(got.grad_accum_count, want.grad_accum_count)
+             and int(got.opt_state.count) == int(want.opt_state.count) == 1)
+    loss = abs(float(info["loss"]) - float(winfo["loss"])) / abs(float(winfo["loss"]))
+    return dict(max_rel=max(errs.values()), worst=max(errs, key=errs.get), exact=exact,
+                loss_rel=loss)
+
+
+def _mgpu_scene(dev, views):
+    """The garden scene in MGPU_CAPACITY slots, uint8 targets of ``views``
+    orbit views rendered from it on black, then the training phases'
+    perturbation of colour and opacity."""
+    import torch
+
+    import render_torch
+    from gaussian_splatting_torch import checkpoint as ckpt
+    from gaussian_splatting_torch.rasterize import rasterize
+    from gaussian_splatting_torch.structs import Camera
+
+    scene = ckpt.import_ply(SCENE, device=dev, capacity=MGPU_CAPACITY)
+    xyz = scene.xyz[scene.alive].detach().cpu().numpy()
+    poses = [torch.from_numpy(p).to(dev) for p in render_torch.orbit_poses(xyz, N_VIEWS)]
+    K = torch.tensor([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]],
+                     dtype=torch.float32, device=dev)
+    cam = Camera(K, WIDTH, HEIGHT)
+    black = torch.zeros(3, device=dev)
+    params = {k: v.detach() for k, v in scene.params().items()}
+    with torch.no_grad():
+        gts = [(rasterize(params, scene.alive, poses[v], cam, background_rgb=black,
+                          n_sh_band=SH_BAND, **_scene_kw()).image.clamp(0, 1) * 255)
+               .round().to(torch.uint8) for v in range(views)]
+        perturb(scene, int(scene.alive.sum()))
+    return scene, cam, poses, gts, black
+
+
+def _scene_kw():
+    from gaussian_splatting_torch.config import SplatConfig
+
+    cfg = SplatConfig()
+    return dict(near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+                cull_mask_padding=cfg.cull_mask_padding, mh_dist=cfg.mh_dist)
+
+
+def _mgpu_nccl_rank():
+    """(a) One rank on cuda:0 over NCCL: mp_train_step and dp_train_step
+    against trainer.train_step on garden view 0."""
+    import torch
+
+    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch.config import SplatConfig
+    from gaussian_splatting_torch.parallel import comm, gsharded
+    from gaussian_splatting_torch.parallel import mesh as pmesh
+
+    dev = torch.device(DEVICE)
+    scene, cam, poses, gts, black = _mgpu_scene(dev, 1)
+    cfg = SplatConfig()
+    kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
+    state = trainer.init_train_state(scene, cfg)
+    want, winfo = trainer.train_step(state, gts[0], cam.K, poses[0], black, **kw)
+    launches = collections.Counter()
+    out = {}
+    for name, make, step in (("mp_train_step", comm.make_model_mesh, gsharded.mp_train_step),
+                             ("dp_train_step", comm.make_mesh, pmesh.dp_train_step)):
+        mesh = make(device_type="cuda")
+        _build.LAUNCHES.clear()
+        got, info = step(state, gts[0], cam.K, poses[0], black, mesh=mesh, **kw)
+        launches.update(_build.LAUNCHES)
+        out[name] = _step_errors(got, want, info, winfo)
+    return dict(out, backend=torch.distributed.get_backend(), launches=dict(launches))
+
+
+def _mgpu_pair_rank():
+    """(b) Two ranks sharing the card over gloo: mp_render against rasterize
+    on both colour paths, mp_train_step against trainer.train_step on both,
+    dp_train_step (rank r on view r) against the mean of the two views'
+    gradients taken in one process."""
+    import torch
+
+    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch.config import SplatConfig
+    from gaussian_splatting_torch.parallel import comm, gsharded
+    from gaussian_splatting_torch.parallel import mesh as pmesh
+    from gaussian_splatting_torch.rasterize import rasterize
+
+    rank = torch.distributed.get_rank()
+    dev = comm.rank_device("cuda", rank)
+    scene, cam, poses, gts, black = _mgpu_scene(dev, 2)
+    state = trainer.init_train_state(scene, SplatConfig())
+    mesh = comm.make_model_mesh(device_type="cuda")
+    shard = gsharded.shard_state(state, mesh.model_rank, mesh.mp)
+    launches = collections.Counter()
+    out = {"backend": mesh.backend}
+    bg = torch.full((3,), 0.25, device=dev)
+    for path, pre in (("dc", True), ("per_pixel", False)):
+        cfg = SplatConfig(use_sh_precompute=pre)
+        kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
+        with torch.no_grad():
+            want = rasterize(state.params, state.alive, poses[0], cam, background_rgb=bg,
+                             n_sh_band=SH_BAND, use_sh_precompute=pre, **_scene_kw())
+            _build.LAUNCHES.clear()
+            img, vis, info = gsharded.mp_render(
+                shard.params, shard.alive, poses[0], cam.K, background_rgb=bg,
+                mesh=mesh, **kw)
+            launches.update(_build.LAUNCHES)
+        out[f"render_{path}"] = dict(
+            err=float((img - want.image).abs().max()), splats=int(info["num_splats"]),
+            want_splats=want.num_splats,
+            visible_ok=bool(torch.equal(vis, want.visible.chunk(mesh.mp)[mesh.model_rank])))
+        ref, rinfo = trainer.train_step(state, gts[0], cam.K, poses[0], bg, **kw)
+        _build.LAUNCHES.clear()
+        got, ginfo = gsharded.mp_train_step(shard, gts[0], cam.K, poses[0], bg,
+                                            mesh=mesh, **kw)
+        launches.update(_build.LAUNCHES)
+        out[f"step_{path}"] = _step_errors(gsharded.gather_state(got, mesh), ref, ginfo, rinfo)
+
+    # data parallelism: the mean of the two views' gradients in one process
+    cfg = SplatConfig()
+    kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
+    dmesh = comm.make_mesh(device_type="cuda")
+    _build.LAUNCHES.clear()
+    got, ginfo = pmesh.dp_train_step(state, gts[rank], cam.K, poses[rank], bg,
+                                     mesh=dmesh, **kw)
+    launches.update(_build.LAUNCHES)
+    runs = [trainer.camera_loss(state, gts[v], cam.K, poses[v], bg, **kw) for v in range(2)]
+    grads = {k: (runs[0][2][k] + runs[1][2][k]) / 2 for k in runs[0][2]}
+    loss = (runs[0][0] + runs[1][0]) / 2
+    ok = trainer.step_ok(loss, grads)
+    want = trainer.adam_step(state, grads, ok, cfg)
+    uv = sum(trainer.uv_grad_rows(r[3], cam.K, r[1][1].visible) for r in runs)
+    seen = sum(r[1][1].visible.to(torch.int32) for r in runs)
+    want = trainer.accumulate(want, uv, grads["xyz"].abs(), seen, ok)
+    out["step_dp"] = _step_errors(got, want, ginfo, dict(loss=loss.detach()))
+    out["launches"] = dict(launches)
+
+    # gloo's all-gather of CUDA tensors at the size of (d)'s feature bundle
+    # (11 rows of 1,048,576 slots a rank, 92 MB gathered)
+    x = torch.ones(11 << 20, device=dev)
+    out["gather_ms"] = []
+    for _ in range(3):
+        torch.distributed.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        comm.gather(x, 0, mesh.model_group)
+        torch.cuda.synchronize(dev)
+        out["gather_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _checksums(state):
+    """sha256 of every tensor of a TrainState, by leaf."""
+    import hashlib
+
+    from gaussian_splatting_torch import trainer
+
+    sums = {}
+
+    def add(x):
+        sums[len(sums)] = hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+        return x
+
+    trainer.map_state(add, state)
+    return sums
+
+
+@contextlib.contextmanager
+def collective_times(times):
+    """Record in ``times`` the host-clock seconds of every collective of
+    parallel/comm.py made inside the block, with the device synchronised
+    before and after each: the collective's own time and its wait for the
+    peers."""
+    import torch
+
+    from gaussian_splatting_torch.parallel import comm
+
+    def timed(fn):
+        def collective(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return collective
+
+    names = ("gather", "reduce_scatter", "all_reduce", "broadcast")
+    plain = {n: getattr(comm, n) for n in names}
+    for n in names:
+        setattr(comm, n, timed(plain[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(comm, n, plain[n])
+
+
+def _mgpu_cli_rank(argv, out, iters, tag):
+    """(d), (e) One rank of train_torch.main(argv): check_cli_run on its
+    runner, its step times, launches and peak memory, the state it
+    checkpointed at MGPU_CHECKPOINT against the file read back, checksums
+    of its state after each ADC event and at the end; then, after the run,
+    one profiled step (device busy) and MGPU_COLL_STEPS steps with every
+    collective timed."""
+    import torch
+
+    import train_torch
+    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import checkpoint as ckpt
+    from gaussian_splatting_torch.parallel import gsharded
+    from gaussian_splatting_torch.parallel import mesh as pmesh
+    from gaussian_splatting_torch.runner import TrainingRunner
+
+    steps, events, saved, sums = [], [], {}, {"adc": []}
+
+    def keep_checkpoint(runner, path, iteration, ply=None):
+        if iteration == MGPU_CHECKPOINT:
+            saved[path] = trainer.map_state(lambda x: x.detach().cpu(), runner.state)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    with call_times(pmesh, "dp_train_step", steps, sync=False), \
+            call_times(gsharded, "dp_mp_train_step", steps, sync=False), \
+            call_times(TrainingRunner, "_densify", events, sync=True,
+                       after=lambda runner, i: sums["adc"].append(_checksums(runner.state))), \
+            call_times(TrainingRunner, "_save_checkpoint", [], sync=False,
+                       after=keep_checkpoint):
+        runner = train_torch.main(argv)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    torch.distributed.barrier()  # rank 0 has written the run's files
+    check_cli_run(runner, out, launches, 0, iters, f"{tag} rank {runner.mesh.rank}")
+    mesh, m = runner.mesh, runner.metrics
+    step_ms = float(np.median(np.diff([a for a, _ in steps])) * 1e3)
+    sums["end"] = _checksums(runner.state)
+
+    ckpt_ok = None
+    for path, state in saved.items():
+        full, it, _ = ckpt.load_checkpoint(path, runner.config, device="cpu")
+        if mesh.mp > 1:
+            full = gsharded.shard_state(full, mesh.model_rank, mesh.mp)
+        ckpt_ok = it == MGPU_CHECKPOINT and all(
+            torch.equal(a, b) for a, b in zip(_checksum_leaves(full), _checksum_leaves(state)))
+
+    # after the run, so that its step times carry no instrumentation
+    idx = int(runner.train_split[0])
+    cam, pose = runner._camera(idx)
+    step = pmesh.dp_train_step if mesh.mp == 1 else gsharded.dp_mp_train_step
+    kw = dict(config=runner.config, camera_hw=(cam.height, cam.width), n_sh_band=0,
+              mesh=mesh)
+    gt, bg = runner.gt_image_dev(idx), runner.background_for(0)
+
+    def one_step():
+        step(runner.state, gt, cam.K, pose, bg, **kw)
+
+    busy_ms = profile_step(one_step, step_ms, f"{tag} rank {mesh.rank}")
+    coll = []
+    with collective_times(coll):
+        for _ in range(MGPU_COLL_STEPS):
+            one_step()
+    return dict(rank=mesh.rank, backend=mesh.backend, launches=launches, steps=len(steps),
+                step_ms=step_ms, coll_ms=sum(coll) * 1e3 / MGPU_COLL_STEPS,
+                coll_calls=len(coll) // MGPU_COLL_STEPS, busy_ms=busy_ms,
+                peak_gib=peak / 2**30, metrics=m.to_dict(),
+                n_alive=int(runner.state.alive.sum()), ckpt_ok=ckpt_ok, sums=sums,
+                gt_ms=runner.gt_seconds * 1e3 / len(runner.data.images),
+                capacity=runner.state.alive.shape[0])
+
+
+def _checksum_leaves(state):
+    from gaussian_splatting_torch import trainer
+
+    leaves = []
+    trainer.map_state(lambda x: leaves.append(x) or x, state)
+    return leaves
+
+
+def _check_step(tag, errs):
+    print(f"[mgpu] {tag}: gradient leaves within {errs['max_rel']:.3e} of the largest "
+          f"entry ({errs['worst']}), loss {errs['loss_rel']:.2e} relative, counts and "
+          f"masks {'equal' if errs['exact'] else 'DIFFER'}")
+    if not (errs["max_rel"] <= BWD_REL_TOL and errs["exact"] and errs["loss_rel"] < 1e-6):
+        raise AssertionError(f"[mgpu] {tag}: {errs}")
+
+
+def mgpu_cli_run(kind, smi, out):
+    """(d) or (e): train_torch.main on the synthetic reference-scale scene
+    with the MGPU_RUNS[kind] schedule on two ranks sharing the card; its
+    checks and numbers.  Returns the launches summed over the ranks."""
+    from gaussian_splatting_torch.parallel import comm
+
+    sched = MGPU_RUNS[kind]
+    tag = f"mgpu-{kind}"
+    iters = sched["num_iters"]
+    t0 = time.perf_counter()
+    ranks = comm.launch(_mgpu_cli_rank, 2, cli_argv(out, **sched), out, iters, tag,
+                        device_type="cuda")
+    run_s = time.perf_counter() - t0
+    total = collections.Counter()
+    for r in ranks:
+        total.update(r["launches"])
+        print(f"[{tag}] rank {r['rank']} ({r['backend']}): {r['steps']} steps, launches "
+              f"{r['launches']}; step {r['step_ms']:.3f} ms median between step starts "
+              f"(host clock, no instrumentation), collectives {r['coll_ms']:.3f} ms a step "
+              f"in {r['coll_calls']} calls (a sync before and after each, over "
+              f"{MGPU_COLL_STEPS} steps after the run), device busy {r['busy_ms']:.3f} ms "
+              f"in one profiled step, peak memory {r['peak_gib']:.3f} GiB, ground truth "
+              f"{r['gt_ms']:.3f} ms a view; {r['capacity']} slots a rank ({smi})")
+        if r["steps"] != iters:
+            raise AssertionError(f"[{tag}] rank {r['rank']}: {r['steps']} steps")
+        if [e["iter"] for e in r["metrics"]["adc_events"]] != MGPU_ADC_ITERS[kind]:
+            raise AssertionError(f"[{tag}] ADC events {r['metrics']['adc_events']}")
+    m0 = ranks[0]["metrics"]
+    alive = [e["alive"] for e in m0["adc_events"]]
+    n_alive = sum(r["n_alive"] for r in ranks) if kind == "mp" else ranks[0]["n_alive"]
+    print(f"[{tag}] {iters} iterations in {run_s:.1f} s; ADC at {MGPU_ADC_ITERS[kind]}: "
+          f"alive {alive}, {n_alive} at the end; test PSNR at {m0['eval_iters']}: "
+          f"{', '.join(f'{x:.4f}' for x in m0['test_psnr'])} ({smi})")
+    if not m0["test_psnr"][-1] > m0["test_psnr"][0]:
+        raise AssertionError(f"[{tag}] test PSNR did not rise: {m0['test_psnr']}")
+    if alive[-1] != n_alive:
+        raise AssertionError(f"[{tag}] {n_alive} alive, the last event left {alive[-1]}")
+    names = sorted(os.listdir(out))
+    want_files = {"config.yaml", "metrics.json", "ckpt_final.npz", "scene_final.ply"}
+    if kind == "mp":
+        want_files.add(f"ckpt_iter_{MGPU_CHECKPOINT}.npz")
+        if not all(r["ckpt_ok"] for r in ranks):
+            raise AssertionError(f"[{tag}] a shard differs from ckpt_iter_{MGPU_CHECKPOINT}")
+        print(f"[{tag}] ckpt_iter_{MGPU_CHECKPOINT}.npz read back through load_checkpoint: "
+              "each rank's shard of it equals the shard it held, bitwise")
+    else:
+        sums = [(r["sums"]["adc"], r["sums"]["end"]) for r in ranks]
+        if sums[0] != sums[1]:
+            raise AssertionError(f"[{tag}] the replicas differ")
+        print(f"[{tag}] the two replicas are bitwise equal after the ADC event and at "
+              f"the end ({len(sums[0][1])} tensors, sha256)")
+    if not want_files <= set(names):
+        raise AssertionError(f"[{tag}] files {names}")
+    return dict(total)
+
+
+def mgpu_phase(smi):
+    """The multi-GPU phase: (a) NCCL at world size 1, (b) two ranks sharing
+    the card over gloo, (c) the dry run on four ranks, (d) the training CLI
+    with --model_parallel 2, (e) with --data_parallel 2.  Returns the
+    launches summed over every rank of (a), (b), (d), (e)."""
+    import torch
+
+    from gaussian_splatting_torch.parallel import comm
+    from gaussian_splatting_torch.parallel.dryrun import dryrun_multigpu
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    totals = collections.Counter()
+    with phase("multi-GPU (a): NCCL, one rank"):
+        [a] = comm.launch(_mgpu_nccl_rank, 1, device_type="cuda")
+        print(f"[mgpu] (a) backend {a['backend']}, one rank on {DEVICE}, garden view 0 at "
+              f"{WIDTH}x{HEIGHT}, {MGPU_CAPACITY} slots; launches {a['launches']}")
+        for name in ("mp_train_step", "dp_train_step"):
+            _check_step(f"(a) {name} vs trainer.train_step", a[name])
+        totals.update(a["launches"])
+    with phase("multi-GPU (b): two ranks over gloo"):
+        pair = comm.launch(_mgpu_pair_rank, 2, device_type="cuda")
+        for r, b in enumerate(pair):
+            print(f"[mgpu] (b) rank {r} ({b['backend']}): launches {b['launches']}")
+            for path in ("dc", "per_pixel"):
+                rd = b[f"render_{path}"]
+                print(f"[mgpu] (b) rank {r} mp_render {path} vs rasterize: image within "
+                      f"{rd['err']:.3e}, {rd['splats']} splats in the bands against "
+                      f"{rd['want_splats']}, visibility {'equal' if rd['visible_ok'] else 'DIFFERS'}")
+                if not (rd["err"] <= IMG_TOL and rd["visible_ok"]
+                        and rd["splats"] >= rd["want_splats"]):
+                    raise AssertionError(f"[mgpu] (b) mp_render {path}: {rd}")
+                _check_step(f"(b) rank {r} mp_train_step {path} vs train_step", b[f"step_{path}"])
+            _check_step(f"(b) rank {r} dp_train_step vs the mean of two views", b["step_dp"])
+            print(f"[mgpu] (b) rank {r}: all-gather of 46 MB a rank (92 MB gathered) of "
+                  f"CUDA tensors over gloo: {', '.join(f'{t:.3f}' for t in b['gather_ms'])} "
+                  f"ms (host clock between synchronisations; {smi})")
+            want = {"render_fwd": 3, "render_bwd": 2, "render_sh_fwd": 2, "render_sh_bwd": 1}
+            if b["launches"] != want:
+                raise AssertionError(f"[mgpu] (b) rank {r} launches {b['launches']} != {want}")
+            totals.update(b["launches"])
+    with phase("multi-GPU (c): dry run, four ranks"):
+        lines = dryrun_multigpu(4, "cuda")
+        if len(lines) != 6 or not all(line.endswith("OK") for line in lines):
+            raise AssertionError(f"[mgpu] (c) {lines}")
+    for kind, part in (("mp", "(d)"), ("dp", "(e)")):
+        with phase(f"multi-GPU {part}: train_torch --{kind} 2"), \
+                tempfile.TemporaryDirectory() as tmp:
+            totals.update(mgpu_cli_run(kind, smi, os.path.join(tmp, "run")))
+    print(f"[mgpu] launches over every rank of (a), (b), (d), (e): {dict(totals)}")
     return dict(totals)
 
 
@@ -1609,6 +2057,9 @@ def main():
     with phase("training CLI"):
         cli_launches = cli_phase(smi)
 
+    # 12. multi-GPU training: the ranks share the one card
+    mgpu_launches = mgpu_phase(smi)
+
     def entry(key, name, source, replaces, launches, err, **extra):
         ms, plain_ms = times[key]
         bound_ms, bound_by = bounds[key]
@@ -1623,7 +2074,8 @@ def main():
               "gaussian_splatting_torch/csrc/render_fwd.cu",
               "gaussian_splatting_tpu/ops/render.py:525",
               launches["render_fwd"] + train_launches["render_fwd"]
-              + adc_launches["render_fwd"] + cli_launches["render_fwd"], img_err,
+              + adc_launches["render_fwd"] + cli_launches["render_fwd"]
+              + mgpu_launches["render_fwd"], img_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("depth_fwd", "depth_fwd (B5, depth)",
@@ -1636,18 +2088,19 @@ def main():
               "gaussian_splatting_torch/csrc/render_bwd.cu",
               "gaussian_splatting_tpu/ops/render.py:635",
               train_launches["render_bwd"] + adc_launches["render_bwd"]
-              + cli_launches["render_bwd"], b2_abs,
+              + cli_launches["render_bwd"] + mgpu_launches["render_bwd"], b2_abs,
               max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
               "gaussian_splatting_torch/csrc/render_sh_fwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:93",
-              sh_launches["render_sh_fwd"] + sh_train_launches["render_sh_fwd"], b3_err,
+              sh_launches["render_sh_fwd"] + sh_train_launches["render_sh_fwd"]
+              + mgpu_launches["render_sh_fwd"], b3_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("render_sh_bwd", "render_sh_bwd (B4, per-pixel SH backward)",
               "gaussian_splatting_torch/csrc/render_sh_bwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:187",
-              sh_train_launches["render_sh_bwd"], b4_abs,
+              sh_train_launches["render_sh_bwd"] + mgpu_launches["render_sh_bwd"], b4_abs,
               max_rel_err_per_row=b4_rel, run_to_run_spread=b4_spread),
     ]
     for key, label, source, replaces, point in PROBES:

@@ -84,6 +84,34 @@ def _camera_rows(params, camera_T_world, camera):
     return xc, yc, zc, u, v, conic3, opacity_v
 
 
+def splat_features(params, u, v, conic3, opacity_v, camera_T_world, n_sh_band: int,
+                   use_sh_precompute: bool):
+    """The rasterizer's per-gaussian feature rows and whether they are the
+    per-pixel SH rows: (6 + 3*n_sh, N) raw coefficients, which the kernel
+    contracts with each pixel's view-direction basis, when n_sh > 1 and not
+    ``use_sh_precompute``; else (9, N) DC colour, the SH bands evaluated
+    once per gaussian along its view direction."""
+    n_sh = _active_sh_coeffs(n_sh_band)
+    if n_sh > 1:
+        coeffs = torch.cat(
+            [params["rgb"][:, :, None], params["sh"][:, :, : n_sh - 1]], dim=2
+        )
+    if n_sh > 1 and not use_sh_precompute:
+        return sh_splat_feature_rows(u, v, opacity_v, conic3, coeffs), True
+    if n_sh == 1:
+        rgb = params["rgb"]
+    else:
+        center = geo.camera_center_from_pose(camera_T_world)
+        rgb = geo.precompute_rgb_from_sh(coeffs, params["xyz"], center)
+    # the DC rasterizer path scales colour by SH_0; folding it into the
+    # features keeps the kernel linear in colour
+    feat = splat_feature_rows(
+        u, v, opacity_v, *conic3,
+        rgb[:, 0] * geo.SH_0, rgb[:, 1] * geo.SH_0, rgb[:, 2] * geo.SH_0,
+    )
+    return feat, False
+
+
 class KernelInputs(NamedTuple):
     """Everything ``rasterize`` hands the rasterizer kernels."""
 
@@ -131,29 +159,13 @@ def kernel_inputs(
         layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
                               opacity=opacity_v)
 
+    feat, per_pixel_sh = splat_features(params, u, v, conic3, opacity_v, camera_T_world,
+                                        n_sh_band, use_sh_precompute)
     basis = None
-    if n_sh > 1:
-        coeffs = torch.cat(
-            [params["rgb"][:, :, None], params["sh"][:, :, : n_sh - 1]], dim=2
-        )
-    if n_sh > 1 and not use_sh_precompute:
-        # per-pixel SH: the kernel contracts the raw coefficients with each
-        # pixel's view-direction basis; the basis gets no gradient
-        feat = sh_splat_feature_rows(u, v, opacity_v, conic3, coeffs)
+    if per_pixel_sh:
+        # the basis gets no gradient
         with torch.no_grad():
             basis = build_pixel_basis(camera.K, camera_T_world, n_sh, grid)
-    else:
-        if n_sh == 1:
-            rgb = params["rgb"]
-        else:
-            center = geo.camera_center_from_pose(camera_T_world)
-            rgb = geo.precompute_rgb_from_sh(coeffs, params["xyz"], center)
-        # the DC rasterizer path scales colour by SH_0; folding it into the
-        # features keeps the kernel linear in colour
-        feat = splat_feature_rows(
-            u, v, opacity_v, *conic3,
-            rgb[:, 0] * geo.SH_0, rgb[:, 1] * geo.SH_0, rgb[:, 2] * geo.SH_0,
-        )
     return KernelInputs(feat, basis, layout, grid, visible, u, v)
 
 

@@ -11,11 +11,24 @@ after the step, in ``_drain``, so the host never waits for the step it
 has just queued; the layout's own size reads (``culling.build_layout``)
 remain.
 
+With ``data_parallel`` * ``model_parallel`` > 1 the runner is one rank of
+a process group of that many ranks (``train_torch.py`` starts them): the
+JAX runner's modes over a ``parallel.comm`` mesh.  Data parallelism
+renders one camera a rank (every rank draws the same cameras and takes its
+own); model parallelism shards the state's slots over the model group and
+renders the image in tile-row bands; both together use a (dp, mp) mesh.
+Every rank renders the synthetic ground truth itself.  Adaptive density
+control runs on the whole state: a sharded state is gathered, every rank
+runs the single-device event with the same generator, and each keeps its
+shard, which keeps the event's global pairing of candidates with free
+slots.  Only rank 0 prints and writes files; with data parallelism only
+rank 0 evaluates (its replica is the state), with model parallelism every
+rank renders its band of each eval view.
+
 Not ported, by design: the JAX runner's capacity machinery (rebucketing,
 eval capacities, overflow retries and the buckets it saves with a
 checkpoint), because the port has no capacities; ``steps_per_dispatch``,
-a TPU dispatch; and data or model parallelism (``data_parallel`` or
-``model_parallel`` > 1 raise ``NotImplementedError``).
+a TPU dispatch.
 """
 
 from __future__ import annotations
@@ -33,6 +46,8 @@ from gaussian_splatting_torch import trainer as T
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.dataio.dataset import SceneData, create_scene
 from gaussian_splatting_torch.dataio.png import write_png
+from gaussian_splatting_torch.parallel import comm, gsharded
+from gaussian_splatting_torch.parallel import mesh as pmesh
 from gaussian_splatting_torch.plot import terminal_plot
 from gaussian_splatting_torch.rasterize import rasterize
 from gaussian_splatting_torch.structs import Camera, GSMetricsLog
@@ -63,12 +78,10 @@ def _sync(device: torch.device) -> None:
 class TrainingRunner:
     def __init__(self, data: SceneData, config: SplatConfig, synthetic: bool = False,
                  *, device):
-        if config.data_parallel > 1 or config.model_parallel > 1:
-            raise NotImplementedError(
-                f"data_parallel={config.data_parallel}, model_parallel="
-                f"{config.model_parallel}: the port trains on one device; "
-                "multi-GPU training is not ported yet"
-            )
+        dp, mp = config.data_parallel, config.model_parallel
+        if dp > 1 and len({(c.height, c.width) for c in data.cameras.values()}) > 1:
+            raise ValueError("data_parallel>1 requires a single camera resolution; got "
+                             f"{sorted({(c.height, c.width) for c in data.cameras.values()})}")
         self.data = data
         self.config = config
         self.synthetic = synthetic
@@ -76,6 +89,8 @@ class TrainingRunner:
         self.metrics = GSMetricsLog()
         self.rng = np.random.default_rng(config.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.mesh = None  # the parallel layout, when this is one rank of dp * mp
+        self.primary = True  # the rank that prints and writes files
 
         # synthetic runs train from a sparse subset of the secret scene's
         # points, so ADC must grow the scene; the ground truth uses them all
@@ -86,13 +101,17 @@ class TrainingRunner:
             init_data = dataclasses.replace(data, xyz=data.xyz[sel], rgb=data.rgb[sel])
 
         capacity = derive_capacity(init_data.xyz.shape[0], config)
-        print(f"points: {init_data.xyz.shape[0]}  capacity: {capacity}  "
-              f"device: {self.device}")
+        if dp * mp > 1:
+            self._join(dp, mp)
+        self._say(f"points: {init_data.xyz.shape[0]}  capacity: {capacity}  "
+                  f"device: {self.device}"
+                  + (f"  data_parallel: {dp}  model_parallel: {mp}  backend: "
+                     f"{self.mesh.backend}" if self.mesh else ""))
         if config.load_checkpoint and config.checkpoint_path:
             self.state, self.start_iter, self.generator = ckpt.load_checkpoint(
                 config.checkpoint_path, config, device=self.device)
-            print(f"resumed from {config.checkpoint_path} at iteration "
-                  f"{self.start_iter}")
+            self._say(f"resumed from {config.checkpoint_path} at iteration "
+                      f"{self.start_iter}")
         elif config.load_ply:
             # initialise (or fine-tune) from a community 3DGS .ply, with the
             # slot capacity derived from the ply's own gaussian count
@@ -102,13 +121,17 @@ class TrainingRunner:
             if ply_cap > scene.capacity:
                 scene = ckpt.import_ply(config.load_ply, device=self.device,
                                         capacity=ply_cap)
-            print(f"loaded {n_ply} gaussians from {config.load_ply}")
+            self._say(f"loaded {n_ply} gaussians from {config.load_ply}")
             self.state = T.init_train_state(scene, config)
             self.start_iter = 0
         else:
             scene = create_scene(init_data, config, capacity, self.device)
             self.state = T.init_train_state(scene, config)
             self.start_iter = 0
+        if mp > 1 and self.state.alive.shape[0] % mp:
+            raise ValueError(f"gaussian capacity {self.state.alive.shape[0]} must divide "
+                             f"model_parallel={mp}")
+        self._place()
 
         # every test_split_ratio-th image is held out for test
         all_idx = np.arange(len(data.images))
@@ -127,6 +150,51 @@ class TrainingRunner:
         # the synthetic ground truth's render: seconds and peak splats
         self.gt_seconds = self.gt_peak_splats = None
         self._synthetic_gt()
+
+    # -- ranks ---------------------------------------------------------------
+
+    def _join(self, dp: int, mp: int):
+        """This process as one rank of the dp x mp layout (the process group
+        train_torch.py or parallel.comm.launch started)."""
+        if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+            raise ValueError(f"data_parallel={dp} x model_parallel={mp} runs as {dp * mp} "
+                             "ranks: start it through train_torch.py or parallel.comm.launch")
+        self.mesh = comm.make_2d_mesh(dp, mp, device_type=self.device.type)
+        if self.mesh.device != self.device:
+            raise ValueError(f"rank {self.mesh.rank} runs on {self.mesh.device}, "
+                             f"not {self.device}")
+        self.primary = self.mesh.rank == 0
+
+    def _say(self, *args, **kwargs):
+        if self.primary:
+            print(*args, **kwargs)
+
+    def _place(self):
+        """Place the full state: a data replica keeps it as rank 0 holds it,
+        a model shard keeps its slots."""
+        if self.mesh is None:
+            return
+        if self.mesh.mp > 1:
+            self.state = gsharded.shard_state(self.state, self.mesh.model_rank, self.mesh.mp)
+        else:
+            self.state = pmesh.replicate_state(self.state, self.mesh)
+
+    def _full_state(self):
+        """The whole state (a collective over the model group when sharded)."""
+        if self.mesh is None or self.mesh.mp == 1:
+            return self.state
+        return gsharded.gather_state(self.state, self.mesh)
+
+    def _save_checkpoint(self, path: str, iteration: int, ply: str = None):
+        """Rank 0 writes the whole state (and, with ``ply``, the scene file);
+        the ranks of its model group take part in the gather."""
+        if self.mesh is not None and self.mesh.data_rank != 0:
+            return
+        state = self._full_state()
+        if self.primary:
+            ckpt.save_checkpoint(path, state, iteration, self.generator)
+            if ply:
+                ckpt.export_ply(ply, state)
 
     # -- data access --------------------------------------------------------
 
@@ -158,8 +226,8 @@ class TrainingRunner:
             rng.uniform(*GT_SCALE_RAISE, params["scale"].shape), dtype=torch.float32,
             device=self.device)
         black = torch.zeros(3, dtype=torch.float32, device=self.device)
-        print(f"rendering {len(self.data.images)} synthetic ground-truth images "
-              f"of {secret.capacity} gaussians…")
+        self._say(f"rendering {len(self.data.images)} synthetic ground-truth images "
+                  f"of {secret.capacity} gaussians…")
         peak, truncated = 0, 0
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -175,8 +243,8 @@ class TrainingRunner:
         _sync(self.device)
         self.gt_seconds = time.perf_counter() - t0
         self.gt_peak_splats = peak
-        print(f"  {self.gt_seconds:.2f} s; peak {peak} splats in a view; "
-              f"{truncated} window cells truncated in all")
+        self._say(f"  {self.gt_seconds:.2f} s; peak {peak} splats in a view; "
+                  f"{truncated} window cells truncated in all")
 
     def gt_image(self, idx: int) -> torch.Tensor:
         """Ground truth of image idx as float32 (H, W, 3) in [0, 1] on the
@@ -217,29 +285,40 @@ class TrainingRunner:
             self.metrics.truncated_cells += info["truncated"]
             if not self._truncated_seen:
                 self._truncated_seen = True
-                print(f"  note: iter {i} truncated oversized gaussian windows "
-                      f"(> 4096 tiles): {info['truncated']} tail cells dropped "
-                      "this step (counts accumulate in metrics.json)")
+                self._say(f"  note: iter {i} truncated oversized gaussian windows "
+                          f"(> 4096 tiles): {info['truncated']} tail cells dropped "
+                          "this step (counts accumulate in metrics.json)")
         self._last_info = (i, info)
 
     def _drain(self, upto: int = 0):
         """Read the pending infos until ``upto`` are left, each with one
         copy to the host."""
+        keys = ("psnr", "n_alive", "num_splats", "truncated")
         while len(self._pending) > upto:
             i, info = self._pending.pop(0)
-            psnr, n_alive = torch.stack(
-                [info["psnr"].double(), info["n_alive"].double()]).tolist()
-            self._process_info(i, dict(
-                psnr=psnr, n_alive=int(n_alive), num_splats=info["num_splats"],
-                truncated=info["truncated"]))
+            # the parallel steps' counts are device tensors, train_step's ints
+            dev = [k for k in keys if torch.is_tensor(info[k])]
+            read = dict(zip(dev, torch.stack([info[k].double() for k in dev]).tolist()))
+            psnr, n_alive, num_splats, truncated = (read.get(k, info[k]) for k in keys)
+            self._process_info(i, dict(psnr=psnr, n_alive=int(n_alive),
+                                       num_splats=int(num_splats), truncated=int(truncated)))
 
     # -- evaluation ------------------------------------------------------------
 
+    @property
+    def evaluates(self) -> bool:
+        """This rank renders the evals and debug images: every rank of the
+        first data replica (a data replica is the whole state; a model
+        group renders a view in bands)."""
+        return self.mesh is None or self.mesh.data_rank == 0
+
     def _eval_view(self, idx: int, band: int):
         cam, pose = self._camera(idx)
-        return T.eval_step(self.state, self.gt_image_dev(idx), cam.K, pose,
-                           config=self.config, camera_hw=(cam.height, cam.width),
-                           n_sh_band=band)
+        kw = dict(config=self.config, camera_hw=(cam.height, cam.width), n_sh_band=band)
+        if self.mesh is not None and self.mesh.mp > 1:
+            return gsharded.mp_eval_step(self.state, self.gt_image_dev(idx), cam.K, pose,
+                                         mesh=self.mesh, **kw)
+        return T.eval_step(self.state, self.gt_image_dev(idx), cam.K, pose, **kw)
 
     def evaluate(self, save_images=False, iteration=0):
         """Mean PSNR and SSIM over the test split at ``iteration``'s SH band."""
@@ -253,18 +332,34 @@ class TrainingRunner:
                 self._save_image(img, f"iter{iteration}_test_image_{idx}.png")
         return float(np.mean(psnrs)), float(np.mean(ssims))
 
+    def _record_eval(self, iteration: int, save_images=False):
+        """Evaluate on the ranks that evaluate and record the result."""
+        if not self.evaluates:
+            return
+        psnr, ssim = self.evaluate(save_images=save_images, iteration=iteration)
+        self.metrics.test_psnr.append(psnr)
+        self.metrics.test_ssim.append(ssim)
+        self.metrics.eval_iters.append(iteration)
+        return psnr, ssim
+
     def _save_image(self, img: torch.Tensor, name: str):
+        if not self.primary:
+            return
         sat = self.config.saturated_pixel_value
         arr = (img.clamp(0, 1) * sat).to(torch.uint8).cpu().numpy()
         write_png(os.path.join(self.config.output_dir, name), arr)
 
     def _save_debug_image(self, i: int):
         """Render and save the first train view."""
+        if not self.evaluates:
+            return
         img, _, _ = self._eval_view(int(self.train_split[0]),
                                     T.sh_band_for_iteration(self.config, i))
         self._save_image(img, f"debug_iter{i}.png")
 
     def _write_metrics(self):
+        if not self.primary:
+            return
         with open(os.path.join(self.config.output_dir, "metrics.json"), "w") as f:
             json.dump(self.metrics.to_dict(), f)
 
@@ -277,7 +372,7 @@ class TrainingRunner:
         while i < cfg.num_iters:
             # optional trace window of torch.profiler into output_dir/trace
             window = cfg.profile_start <= i < cfg.profile_start + cfg.profile_steps
-            if profiler is None and cfg.profile_steps > 0 and window:
+            if profiler is None and cfg.profile_steps > 0 and window and self.primary:
                 self._drain()
                 profiler = self._start_profiler()
             elif profiler is not None and not window:
@@ -286,26 +381,27 @@ class TrainingRunner:
                 profiler = None
             if i % cfg.test_eval_interval == 0:
                 self._drain()
-                psnr, ssim = self.evaluate(iteration=i)
-                self.metrics.test_psnr.append(psnr)
-                self.metrics.test_ssim.append(ssim)
-                self.metrics.eval_iters.append(i)
-                print(f"\tTEST SPLIT PSNR: {psnr:.3f}, SSIM: {ssim:.4f}")
+                scores = self._record_eval(i)
+                if scores:
+                    self._say(f"\tTEST SPLIT PSNR: {scores[0]:.3f}, SSIM: {scores[1]:.4f}")
 
             band = T.sh_band_for_iteration(cfg, i)
-            idx = int(self.rng.choice(self.train_split))
-            cam, pose = self._camera(idx)
-            self.state, info = T.train_step(
-                self.state, self.gt_image_dev(idx), cam.K, pose, self.background_for(i),
-                config=cfg, camera_hw=(cam.height, cam.width), n_sh_band=band)
+            if self.mesh is None:
+                idx = int(self.rng.choice(self.train_split))
+                cam, pose = self._camera(idx)
+                self.state, info = T.train_step(
+                    self.state, self.gt_image_dev(idx), cam.K, pose, self.background_for(i),
+                    config=cfg, camera_hw=(cam.height, cam.width), n_sh_band=band)
+            else:
+                info = self._parallel_step(i, band)
             # keep DRAIN_LAG steps in flight; read only older infos
             self._pending.append((i, info))
             self._drain(upto=DRAIN_LAG)
 
             if i % cfg.print_interval == 0 and self.metrics.train_psnr:
                 li, linfo = self._last_info
-                print(f"Iter: {li}, PSNR: {linfo['psnr']:.3f}, N: {linfo['n_alive']}, "
-                      f"splats: {linfo['num_splats']}")
+                self._say(f"Iter: {li}, PSNR: {linfo['psnr']:.3f}, N: {linfo['n_alive']}, "
+                          f"splats: {linfo['num_splats']}")
 
             if (i > cfg.adaptive_control_start and i % cfg.adaptive_control_interval == 0
                     and i < cfg.adaptive_control_end):
@@ -314,7 +410,7 @@ class TrainingRunner:
 
             if (i > cfg.reset_opacity_start and i < cfg.reset_opacity_end
                     and i % cfg.reset_opacity_interval == 0):
-                print("\t\tResetting opacity")
+                self._say("\t\tResetting opacity")
                 self.state = T.reset_opacity(self.state, config=cfg)
 
             if cfg.save_debug_image_interval > 0 and i > 0 and (
@@ -322,8 +418,7 @@ class TrainingRunner:
                 self._save_debug_image(i)
 
             if cfg.checkpoint_interval > 0 and i > 0 and i % cfg.checkpoint_interval == 0:
-                ckpt.save_checkpoint(os.path.join(cfg.output_dir, f"ckpt_iter_{i}.npz"),
-                                     self.state, i, self.generator)
+                self._save_checkpoint(os.path.join(cfg.output_dir, f"ckpt_iter_{i}.npz"), i)
                 # the run's record rides along with every periodic checkpoint
                 self._write_metrics()
             i += 1
@@ -331,31 +426,53 @@ class TrainingRunner:
         self._drain()
         if profiler is not None:  # the window ran past the end of training
             self._stop_profiler(profiler)
-        psnr, ssim = self.evaluate(save_images=True, iteration=cfg.num_iters)
-        self.metrics.test_psnr.append(psnr)
-        self.metrics.test_ssim.append(ssim)
-        self.metrics.eval_iters.append(cfg.num_iters)
-        print(f"Final PSNR: {psnr:.3f}, SSIM: {ssim:.4f}")
+        scores = self._record_eval(cfg.num_iters, save_images=True)
+        if scores:
+            self._say(f"Final PSNR: {scores[0]:.3f}, SSIM: {scores[1]:.4f}")
         memory = (f"; peak device memory {torch.cuda.max_memory_allocated(self.device)} "
                   "bytes" if self.device.type == "cuda" else "")
-        print(f"peak {self.peak_splats} splats in a train step; window truncation: "
-              f"{self.metrics.truncated_steps} steps dropped "
-              f"{self.metrics.truncated_cells} cells{memory}")
-        ckpt.save_checkpoint(os.path.join(cfg.output_dir, "ckpt_final.npz"),
-                             self.state, cfg.num_iters, self.generator)
-        ckpt.export_ply(os.path.join(cfg.output_dir, "scene_final.ply"), self.state)
+        self._say(f"peak {self.peak_splats} splats in a train step; window truncation: "
+                  f"{self.metrics.truncated_steps} steps dropped "
+                  f"{self.metrics.truncated_cells} cells{memory}")
+        self._save_checkpoint(os.path.join(cfg.output_dir, "ckpt_final.npz"), cfg.num_iters,
+                              ply=os.path.join(cfg.output_dir, "scene_final.ply"))
         self._write_metrics()
-        print(terminal_plot(self.metrics))
+        if self.primary:
+            print(terminal_plot(self.metrics))
+
+    def _parallel_step(self, i: int, band: int):
+        """One step of every rank: with dp > 1 the JAX runner's draw of dp
+        train views (the same on every rank), of which each data replica
+        takes its own; with one data replica, one view.  The background is
+        shared.  Returns the step's info."""
+        cfg, mesh = self.config, self.mesh
+        if mesh.dp > 1:
+            idxs = self.rng.choice(self.train_split, size=mesh.dp,
+                                   replace=len(self.train_split) < mesh.dp)
+            idx = int(idxs[mesh.data_rank])
+        else:
+            idx = int(self.rng.choice(self.train_split))
+        cam, pose = self._camera(idx)
+        step = pmesh.dp_train_step if mesh.mp == 1 else gsharded.dp_mp_train_step
+        self.state, info = step(
+            self.state, self.gt_image_dev(idx), cam.K, pose, self.background_for(i),
+            config=cfg, camera_hw=(cam.height, cam.width), n_sh_band=band, mesh=mesh)
+        return info
 
     def _densify(self, i: int):
-        """Adaptive density control at iteration i, its stats read once."""
-        self.state, stats = T.adaptive_density_control(
-            self.state, self.generator, i, config=self.config)
+        """Adaptive density control at iteration i, its stats read once.  A
+        sharded state is gathered, every rank runs the event on the whole
+        state with the same generator, and each keeps its shard."""
+        state, stats = T.adaptive_density_control(
+            self._full_state(), self.generator, i, config=self.config)
+        self.state = state
+        if self.mesh is not None and self.mesh.mp > 1:
+            self.state = gsharded.shard_state(state, self.mesh.model_rank, self.mesh.mp)
         names = ("n_deleted", "n_clone", "n_split", "n_alive", "cap_hit",
                  "clone_deferred", "split_deferred")
         s = dict(zip(names, (int(x) for x in torch.stack(
             [stats[k].to(torch.int64) for k in names]).tolist())))
-        print("  ADC: deleted {} cloned {} split {} alive {}".format(
+        self._say("  ADC: deleted {} cloned {} split {} alive {}".format(
             s["n_deleted"], s["n_clone"], s["n_split"], s["n_alive"])
             + (f"  CAP-HIT (free slots exhausted: {s['clone_deferred']} clones "
                f"dropped, {s['split_deferred']} split second-samples lost — raise "
@@ -384,5 +501,5 @@ class TrainingRunner:
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, "trace.json")
         profiler.export_chrome_trace(path)
-        print(f"  trace written to {path} (iters {cfg.profile_start}.."
-              f"{cfg.profile_start + cfg.profile_steps})")
+        self._say(f"  trace written to {path} (iters {cfg.profile_start}.."
+                  f"{cfg.profile_start + cfg.profile_steps})")

@@ -65,11 +65,26 @@ def init_train_state(scene: GaussianScene, config: SplatConfig) -> TrainState:
     )
 
 
-def _float_image(gt_image: torch.Tensor, config: SplatConfig) -> torch.Tensor:
+def float_image(gt_image: torch.Tensor, config: SplatConfig) -> torch.Tensor:
     """A uint8 ground truth is normalised by saturated_pixel_value."""
     if gt_image.dtype == torch.uint8:
         return gt_image.to(torch.float32) * (1.0 / config.saturated_pixel_value)
     return gt_image
+
+
+def map_state(fn, state: TrainState) -> TrainState:
+    """A TrainState with ``fn`` applied to every tensor of ``state``."""
+    adam = state.opt_state
+    return TrainState(
+        params={k: fn(v) for k, v in state.params.items()},
+        alive=fn(state.alive),
+        opt_state=optim.AdamState(count=fn(adam.count),
+                                  mu={k: fn(v) for k, v in adam.mu.items()},
+                                  nu={k: fn(v) for k, v in adam.nu.items()}),
+        uv_grad_accum=fn(state.uv_grad_accum),
+        xyz_grad_accum=fn(state.xyz_grad_accum),
+        grad_accum_count=fn(state.grad_accum_count),
+    )
 
 
 def _render(params, state, camera_K, camera_T_world, config, camera_hw,
@@ -82,6 +97,41 @@ def _render(params, state, camera_K, camera_T_world, config, camera_hw,
         background_rgb=background_rgb, n_sh_band=n_sh_band,
         use_sh_precompute=config.use_sh_precompute, uv_offset=uv_offset,
     )
+
+
+def value_and_grad(state: TrainState, loss_fn):
+    """``loss_fn(params, uv_offset) -> (loss, aux)`` and its gradients at the
+    state's parameters and a zero (2, C) ``uv_offset``: (loss, aux,
+    gradients by leaf name, uv-space gradient (2, C)).  A leaf the loss does
+    not read (sh at band 0) gets a zero gradient."""
+    names = list(state.params)
+    params = {k: state.params[k].detach().requires_grad_(True) for k in names}
+    uv_zero = torch.zeros(2, state.alive.shape[0], dtype=torch.float32,
+                          device=state.alive.device, requires_grad=True)
+    loss, aux = loss_fn(params, uv_zero)
+    with record_function("gs::backward"):
+        grads = torch.autograd.grad(
+            loss, [params[k] for k in names] + [uv_zero], allow_unused=True)
+    gparams = {k: g if g is not None else torch.zeros_like(params[k])
+               for k, g in zip(names, grads[:-1])}
+    return loss, aux, gparams, grads[-1]  # uv_offset reaches every gaussian
+
+
+def camera_loss(state, gt_image, camera_K, camera_T_world, background_rgb, *,
+                config: SplatConfig, camera_hw: tuple, n_sh_band: int):
+    """One camera's render and L1 + SSIM loss, differentiated:
+    (loss, (psnr, RenderResult), gradients by leaf name, uv gradient)."""
+    gt = float_image(gt_image, config)
+
+    def loss_fn(params, uv_offset):
+        with record_function("gs::render"):
+            res = _render(params, state, camera_K, camera_T_world, config,
+                          camera_hw, n_sh_band, background_rgb, uv_offset=uv_offset)
+        with record_function("gs::loss"):
+            loss, psnr = train_loss(res.image, gt, config.ssim_frac)
+        return loss, (psnr, res)
+
+    return value_and_grad(state, loss_fn)
 
 
 def train_step(
@@ -106,35 +156,35 @@ def train_step(
     info holds loss, psnr (0-d tensors), num_splats, num_visible,
     truncated (ints) and n_alive (0-d tensor).
     """
-    gt = _float_image(gt_image, config)
-    names = list(state.params)
-    params = {k: state.params[k].detach().requires_grad_(True) for k in names}
-    uv_zero = torch.zeros(2, state.alive.shape[0], dtype=torch.float32,
-                          device=state.alive.device, requires_grad=True)
-    with record_function("gs::render"):
-        res = _render(params, state, camera_K, camera_T_world, config,
-                      camera_hw, n_sh_band, background_rgb, uv_offset=uv_zero)
-    with record_function("gs::loss"):
-        loss, psnr = train_loss(res.image, gt, config.ssim_frac)
-    with record_function("gs::backward"):
-        grads = torch.autograd.grad(
-            loss, [params[k] for k in names] + [uv_zero], allow_unused=True)
-    g_uv = grads[-1]  # uv_offset reaches every gaussian's features
-    # a leaf the render does not read (sh at band 0) has zero gradient
-    gparams = {k: g if g is not None else torch.zeros_like(params[k])
-               for k, g in zip(names, grads[:-1])}
-
+    loss, (psnr, res), gparams, g_uv = camera_loss(
+        state, gt_image, camera_K, camera_T_world, background_rgb,
+        config=config, camera_hw=camera_hw, n_sh_band=n_sh_band)
     with record_function("gs::adam"):  # with the step skip and accumulators
-        return _apply(state, gparams, g_uv, loss, psnr, res, camera_K, config)
+        ok = step_ok(loss, gparams)
+        new_state = adam_step(state, gparams, ok, config)
+        new_state = accumulate(new_state, uv_grad_rows(g_uv, camera_K, res.visible),
+                               gparams["xyz"].abs(), res.visible.to(torch.int32), ok)
+    info = dict(
+        loss=loss.detach(), psnr=psnr.detach(), num_splats=res.num_splats,
+        num_visible=res.num_visible, truncated=res.truncated,
+        n_alive=state.alive.sum(),
+    )
+    return new_state, info
 
 
-def _apply(state, gparams, g_uv, loss, psnr, res, camera_K, config):
-    """Adam, the skip of a non-finite step and the accumulators."""
-    names = list(state.params)
-    updates, opt_new = optim.update(gparams, state.opt_state, config)
+def step_ok(loss, gparams) -> torch.Tensor:
+    """0-d bool: the loss and the sum of every gradient leaf are finite."""
     ok = torch.isfinite(loss.detach())
     for g in gparams.values():
         ok = ok & torch.isfinite(g.sum())
+    return ok
+
+
+def adam_step(state: TrainState, gparams: dict, ok, config: SplatConfig) -> TrainState:
+    """Adam on every leaf where ``ok`` (a 0-d bool) holds; params and Adam
+    state unchanged where it does not."""
+    names = list(state.params)
+    updates, opt_new = optim.update(gparams, state.opt_state, config)
     new_params = {k: torch.where(ok, state.params[k] + updates[k], state.params[k])
                   for k in names}
     old = state.opt_state
@@ -143,28 +193,26 @@ def _apply(state, gparams, g_uv, loss, psnr, res, camera_K, config):
         mu={k: torch.where(ok, opt_new.mu[k], old.mu[k]) for k in names},
         nu={k: torch.where(ok, opt_new.nu[k], old.nu[k]) for k in names},
     )
+    return state._replace(params=new_params, opt_state=opt_state)
 
-    # densification statistics: uv gradients scaled to world-consistent
-    # units by fx, fy and abs-accumulated over the views that see a gaussian
+
+def uv_grad_rows(g_uv, camera_K, visible):
+    """(C, 2) densification signal of one view: uv gradients scaled to
+    world-consistent units by fx, fy, at the gaussians the view sees."""
     fxfy = torch.stack([camera_K[0, 0], camera_K[1, 1]])
-    uv_grad = (g_uv.abs() * fxfy[:, None] * res.visible[None, :]).T
+    return (g_uv.abs() * fxfy[:, None] * visible[None, :]).T
+
+
+def accumulate(state: TrainState, uv_grad, xyz_grad, seen, ok) -> TrainState:
+    """Add a step's densification statistics where ``ok`` holds: uv_grad
+    (C, 2), xyz_grad (C, 3) and seen (C,) int32, the views that saw each
+    gaussian.  A select, since multiplying by zero does not mask a NaN."""
     zero = torch.zeros((), dtype=torch.float32, device=uv_grad.device)
-    new_state = TrainState(
-        params=new_params,
-        alive=state.alive,
-        opt_state=opt_state,
+    return state._replace(
         uv_grad_accum=state.uv_grad_accum + torch.where(ok, uv_grad, zero),
-        xyz_grad_accum=state.xyz_grad_accum
-        + torch.where(ok, gparams["xyz"].abs(), zero),
-        grad_accum_count=state.grad_accum_count
-        + res.visible.to(torch.int32) * ok.to(torch.int32),
+        xyz_grad_accum=state.xyz_grad_accum + torch.where(ok, xyz_grad, zero),
+        grad_accum_count=state.grad_accum_count + seen * ok.to(torch.int32),
     )
-    info = dict(
-        loss=loss.detach(), psnr=psnr.detach(), num_splats=res.num_splats,
-        num_visible=res.num_visible, truncated=res.truncated,
-        n_alive=state.alive.sum(),
-    )
-    return new_state, info
 
 
 @torch.no_grad()
@@ -181,7 +229,7 @@ def eval_step(
     """Render one test view on a black background and score it: (image,
     psnr, ssim).  The port has no capacities, so there is no overflow flag
     to return."""
-    gt = _float_image(gt_image, config)
+    gt = float_image(gt_image, config)
     bg = torch.zeros(3, dtype=torch.float32, device=gt.device)
     res = _render(state.params, state, camera_K, camera_T_world, config,
                   camera_hw, n_sh_band, bg)

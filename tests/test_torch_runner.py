@@ -387,16 +387,26 @@ def test_cli_per_pixel_sh_from_a_ply(tmp_path, monkeypatch):
 
 def test_cli_refusals(tmp_path):
     """The abort when ADC deletes every gaussian; no silent fallback to the
-    CPU; no multi-device run."""
+    CPU; the JAX runner's two refusals of a parallel layout: a capacity
+    that model_parallel does not divide (raised on the ranks
+    train_torch.main starts, and in the caller), and cameras of several
+    sizes with data_parallel > 1."""
     with pytest.raises(RuntimeError, match="deleted every gaussian"):
         train_torch.main(TINY + RUN + ["--output_dir", str(tmp_path / "a"),
                                        "--delete_opacity_threshold", "0.99"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_torch.main(["synthetic", "--output_dir", str(tmp_path / "b")])
-    for flag in ("--data_parallel", "--model_parallel"):
-        with pytest.raises(NotImplementedError):
-            train_torch.main(TINY + [flag, "2", "--output_dir", str(tmp_path / "c")])
+    with pytest.raises(ValueError, match="capacity 1024 must divide model_parallel=3"):
+        train_torch.main(TINY + ["--model_parallel", "3", "--output_dir", str(tmp_path / "c")])
+    from gaussian_splatting_torch.dataio.dataset import CameraInfo
+
+    cfg = SplatConfig(**dict(SCHEDULE, data_parallel=2, output_dir=str(tmp_path / "d")))
+    data = _data(cfg)
+    data.cameras[1] = CameraInfo(K=data.cameras[0].K, width=16, height=16)
+    data.images[0] = dataclasses.replace(data.images[0], camera_id=1)
+    with pytest.raises(ValueError, match="single camera resolution"):
+        trunner.TrainingRunner(data, cfg, synthetic=True, device="cpu")
 
 
 def test_cli_runs_without_jax(tmp_path):
