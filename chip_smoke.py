@@ -33,6 +33,18 @@ counters, that each went through its kernels:
   resumes from that checkpoint for 50 iterations; checked for the launch
   counts the schedule implies, finite parameters, a growing scene, a
   rising test PSNR and the run's files;
+- a COLMAP capture ("[capture]"): the port's image decoders built with
+  g++ and the committed JPEG fixtures held to OpenCV's decodes, then a
+  capture of garden's shape (185 views at 1297x840 in images_4/ as PNG,
+  138,766 SfM points) rendered from the reference-scale scene's 1,200,000
+  secret points, trained through train_torch.main --dataset_path on the
+  per-pixel SH path for 400 iterations with the CLI phase's schedule
+  (kernels B1, B2 at band 0, B3, B4 at n_sh 4, 9 and 16), with OpenCV and
+  Pillow hidden so the port's PNG decoder reads every image, then its 24
+  test views rendered with depth through render_torch.main --dataset_path
+  (kernels B1, B5) and read back; checked for the launches the schedule
+  implies, finite parameters, a scene that grows at each ADC, a rising
+  test PSNR and the run's files;
 - multi-GPU (gaussian_splatting_torch/parallel; the card is one, so ranks
   share it over gloo and NCCL runs at world size 1): (a) one NCCL rank's
   mp_train_step and dp_train_step against trainer.train_step on garden
@@ -1008,17 +1020,21 @@ def adc_phase(setup, cfg, smi):
     return dict(launches), adc_ms, reset_ms
 
 
-def cli_argv(out, **overrides):
-    """train_torch.py's arguments: the synthetic preset at the fields of
-    runs/refscale7k/config.yaml (read by the port's own YAML reader), with
-    ``overrides``, on DEVICE."""
-    import dataclasses
-
+def refscale_config():
+    """runs/refscale7k/config.yaml, read by the port's own YAML reader."""
     from gaussian_splatting_torch.config import SplatConfig
 
     with open(REFSCALE_CONFIG) as f:
-        cfg = SplatConfig.from_yaml(f.read()).replace(output_dir=out, **overrides)
-    argv = ["synthetic", "--device", DEVICE]
+        return SplatConfig.from_yaml(f.read())
+
+
+def cli_argv(out, preset="synthetic", **overrides):
+    """train_torch.py's arguments: ``preset`` at the fields of
+    runs/refscale7k/config.yaml, with ``overrides``, on DEVICE."""
+    import dataclasses
+
+    cfg = refscale_config().replace(output_dir=out, **overrides)
+    argv = [preset, "--device", DEVICE]
     for k, v in dataclasses.asdict(cfg).items():
         if v is None or isinstance(v, tuple):
             v = ",".join(str(x) for x in v or ())
@@ -1206,6 +1222,454 @@ def cli_phase(smi):
               f"gaussians, {len(m.train_psnr)} steps to {CLI_RESUME_ITERS}; test PSNR at "
               f"{m.eval_iters}: {', '.join(f'{x:.4f}' for x in m.test_psnr)}; "
               f"{resume_s:.1f} s ({smi})")
+    return dict(totals)
+
+
+# the "[capture]" phase: a COLMAP capture of garden's shape (SURVEY.md: 185
+# images, 138,766 SfM points) made from the refscale7k synthetic scene (its
+# 1,200,000 secret points, seed 0) seen from a ring of 185 views, its images
+# PNGs at 1297x840 in images_4/ (an odd width, as a downsampled capture can
+# have), trained through train_torch.py on the per-pixel SH path with the CLI
+# phase's schedule (its trace window moved to a band-3 step), then its 24
+# test views rendered through render_torch.py with depth
+CAPTURE_VIEWS = 185
+CAPTURE_POINTS = 138_766
+CAPTURE_WIDTH, CAPTURE_HEIGHT = 1297, 840
+CAPTURE_FOCAL = 1100.0
+CAPTURE_DOWNSAMPLE = 4
+CAPTURE_THREADS = 8
+CAPTURE_PROFILE_START = 320
+# the committed JPEG fixtures (tests/data_torch/jpeg/make_fixtures.py), held
+# to their references (cv2's decodes) at the CPU test's tolerance
+# (tests/test_torch_imageio.py: bitwise)
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data_torch", "jpeg")
+JPEG_FIXTURE_NAMES = ("full_q95_420", "crop_444", "crop_422_restart", "crop_grey",
+                      "crop_exif6")
+JPEG_MAX_DIFF = 0
+DECODE_REPS = 5
+
+
+def rotation_to_qvec(R):
+    """The wxyz quaternion (w >= 0) of a rotation matrix, the inverse of
+    ``dataio.colmap.qvec_to_rotation``."""
+    R = np.asarray(R, np.float64)
+    q = np.zeros(4)
+    tr = np.trace(R)
+    if tr > 0:
+        s = 2.0 * np.sqrt(tr + 1.0)
+        q[:] = (0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+                (R[1, 0] - R[0, 1]) / s)
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k])
+        q[0] = (R[k, j] - R[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (R[j, i] + R[i, j]) / s
+        q[1 + k] = (R[k, i] + R[i, k]) / s
+    q /= np.linalg.norm(q)
+    return q if q[0] >= 0 else -q
+
+
+def write_colmap_model(sparse, camera, qvecs, tvecs, names, xyz, rgb):
+    """A COLMAP model in its binary format
+    (https://colmap.github.io/format.html): cameras.bin with one PINHOLE
+    camera, ``camera`` = (width, height, fx, fy, cx, cy); images.bin with
+    image i + 1 at ``qvecs[i]``, ``tvecs[i]`` (world to camera) named
+    ``names[i]``, without 2D points; points3D.bin with ``xyz``, uint8
+    ``rgb``, error 0 and empty tracks."""
+    import struct
+
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        width, height, *params = camera
+        f.write(struct.pack("<QiiQQ4d", 1, 1, 1, width, height, *params))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, (q, t, name) in enumerate(zip(qvecs, tvecs, names)):
+            f.write(struct.pack("<i4d3di", i + 1, *q, *t, 1))
+            f.write(name.encode() + b"\0" + struct.pack("<Q", 0))
+    n = len(xyz)
+    rec = np.zeros(n, dtype=[("id", "<i8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                             ("error", "<f8"), ("track", "<u8")])
+    rec["id"] = np.arange(1, n + 1)
+    rec["xyz"] = xyz
+    rec["rgb"] = rgb
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n) + rec.tobytes())
+
+
+def write_capture(root, n_views, n_points, width, height, *, focal, secret_points,
+                  seed=0, downsample=CAPTURE_DOWNSAMPLE, device, threads=CAPTURE_THREADS):
+    """A COLMAP capture of the synthetic scene in ``root``:
+    ``images_{downsample}/`` holds ``n_views`` PNGs of width x height, the
+    renders of ``secret_points`` points of ``make_synthetic_scene_data``
+    (seed ``seed``; at the runner's ground-truth opacity and raised scales,
+    band 0, on black) from its ring of views, through the port's
+    ``rasterize`` on ``device`` at the fields of runs/refscale7k/config.yaml,
+    written by ``write_png`` from ``threads`` threads; ``sparse/0`` holds
+    one PINHOLE camera at ``downsample`` times the size, focal length and
+    principal point (width / 2, height / 2), the views' poses and
+    ``n_points`` of the secret points, drawn by a generator seeded with
+    ``seed``, with their uint8 colours.  Each view is rendered at its pose
+    as ``ColmapDataset`` reads it back.  Returns the model's parts and the
+    seconds to render and in all."""
+    import concurrent.futures
+
+    import torch
+
+    from gaussian_splatting_torch.dataio import colmap
+    from gaussian_splatting_torch.dataio.dataset import (
+        create_scene,
+        make_synthetic_scene_data,
+    )
+    from gaussian_splatting_torch.dataio.png import write_png
+    from gaussian_splatting_torch.rasterize import rasterize
+    from gaussian_splatting_torch.runner import GT_OPACITY, GT_SCALE_RAISE
+    from gaussian_splatting_torch.structs import Camera
+
+    t_start = time.perf_counter()
+    cfg = refscale_config()
+    data = make_synthetic_scene_data(secret_points, n_views, seed, width, height)
+    names = [f"frame_{i:05d}.png" for i in range(n_views)]
+    qvecs = np.stack([rotation_to_qvec(im.camera_T_world[:3, :3]) for im in data.images])
+    tvecs = np.stack([im.camera_T_world[:3, 3].astype(np.float64) for im in data.images])
+    sel = np.sort(np.random.default_rng(seed).choice(secret_points, n_points, replace=False))
+    xyz = data.xyz[sel]
+    rgb = (np.abs(np.sin(xyz * 3.0)) * 255).astype(np.uint8)  # the scene's colours
+    cx, cy, s = width / 2, height / 2, downsample
+    camera = (s * width, s * height, s * focal, s * focal, s * cx, s * cy)
+    write_colmap_model(os.path.join(root, "sparse", "0"), camera, qvecs, tvecs, names,
+                       xyz.astype(np.float64), rgb)
+
+    secret = create_scene(data, cfg, secret_points, device)
+    params = {k: v.detach() for k, v in secret.params().items()}
+    params["opacity"] = torch.full_like(params["opacity"], GT_OPACITY)
+    params["scale"] = params["scale"] + torch.tensor(
+        np.random.default_rng(seed + 1).uniform(*GT_SCALE_RAISE, params["scale"].shape),
+        dtype=torch.float32, device=device)
+    K = torch.tensor([[focal, 0, cx], [0, focal, cy], [0, 0, 1]], dtype=torch.float32,
+                     device=device)
+    cam = Camera(K=K, width=width, height=height)
+    black = torch.zeros(3, dtype=torch.float32, device=device)
+    img_dir = os.path.join(root, f"images_{downsample}")
+    os.makedirs(img_dir)
+    render_s = 0.0
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool, torch.no_grad():
+        writes = []
+        for q, t, name in zip(qvecs, tvecs, names):
+            t0 = time.perf_counter()
+            pose = np.eye(4, dtype=np.float32)  # as ColmapDataset builds it
+            pose[:3, :3] = colmap.qvec_to_rotation(q)
+            pose[:3, 3] = t
+            res = rasterize(params, secret.alive, torch.tensor(pose, device=device), cam,
+                            near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+                            cull_mask_padding=cfg.cull_mask_padding, mh_dist=cfg.mh_dist,
+                            background_rgb=black, n_sh_band=0)
+            img = (res.image.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+            render_s += time.perf_counter() - t0
+            writes.append(pool.submit(write_png, os.path.join(img_dir, name), img))
+        for w in writes:
+            w.result()
+    return dict(camera=camera, qvecs=qvecs, tvecs=tvecs, names=names, xyz=xyz, rgb=rgb,
+                render_s=render_s, total_s=time.perf_counter() - t_start)
+
+
+@contextlib.contextmanager
+def without_image_packages():
+    """Hide OpenCV and Pillow while the block runs, so only the port's own
+    decoders can read an image."""
+    saved = {name: sys.modules.get(name) for name in ("cv2", "PIL")}
+    sys.modules.update(dict.fromkeys(saved))
+    try:
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def check_decoders(smi):
+    """The decoders on this machine: their build, the committed JPEG
+    fixtures against their references, and the decode times of the
+    full-size fixture."""
+    from gaussian_splatting_torch.dataio import dataset, native
+    from gaussian_splatting_torch.dataio.jpeg import read_jpeg
+    from gaussian_splatting_torch.dataio.png import read_png
+
+    cached = native.library_path("image_decode").exists()
+    t0 = time.perf_counter()
+    native.decoders()
+    print(f"[capture] image decoders {native.library_path('image_decode').name}: "
+          + ("loaded from _build_cache" if cached else "built by g++ and loaded")
+          + f" in {time.perf_counter() - t0:.2f} s")
+    for name in JPEG_FIXTURE_NAMES:
+        jpg = os.path.join(JPEG_FIXTURES, f"{name}.jpg")
+        got = dataset.read_rgb(jpg)
+        decoders = [dataset.last_decoder]
+        ref = dataset.read_rgb(jpg[:-4] + ".png")
+        decoders.append(dataset.last_decoder)
+        if decoders != ["jpeg", "png"]:
+            raise AssertionError(f"[capture] {name}: decoded by {decoders}, not the port's")
+        if got.shape != ref.shape:
+            raise AssertionError(f"[capture] {name}: {got.shape} against {ref.shape}")
+        d = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        print(f"[capture] fixture {name}.jpg {got.shape[1]}x{got.shape[0]}: read_jpeg "
+              f"against cv2's decode max |diff| {d.max()}, mean {d.mean():.6f} "
+              f"(tolerance {JPEG_MAX_DIFF}); decoders {decoders}")
+        if d.max() > JPEG_MAX_DIFF:
+            raise AssertionError(f"[capture] {name}: read_jpeg differs from cv2's decode")
+    full = os.path.join(JPEG_FIXTURES, "full_q95_420.jpg")
+    times = {}
+    for label, fn, path in (("read_jpeg", read_jpeg, full),
+                            ("read_png", read_png, full[:-4] + ".png")):
+        ms = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            fn(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[label] = statistics.median(ms)
+    print(f"[capture] decode of the 1296x840 fixture: read_jpeg {times['read_jpeg']:.3f} ms, "
+          f"read_png {times['read_png']:.3f} ms (host clock, median of {DECODE_REPS}; {smi})")
+    return times
+
+
+def expected_capture_launches(runner, out):
+    """The rasterizer launches a per-pixel run's schedule implies, by kernel
+    and, for B3/B4, by n_sh: each step renders and differentiates at its SH
+    band, each eval renders the test views and each debug image one view;
+    band 0 stays on the DC path (B1, B2), bands 1-3 take B3, B4 at n_sh 4,
+    9, 16."""
+    from gaussian_splatting_torch import trainer
+
+    cfg, m = runner.config, runner.metrics
+    want = collections.Counter()
+
+    def render(iteration, n, backward):
+        band = trainer.sh_band_for_iteration(cfg, iteration)
+        keys = (("render_fwd", "render_bwd") if band == 0 else
+                (("render_sh_fwd", (band + 1) ** 2), ("render_sh_bwd", (band + 1) ** 2)))
+        want[keys[0]] += n
+        if backward:
+            want[keys[1]] += n
+
+    for i in range(runner.start_iter, cfg.num_iters):
+        render(i, 1, True)
+    for it in m.eval_iters:
+        render(it, len(runner.test_split), False)
+    for f in os.listdir(out):
+        if f.startswith("debug_iter"):
+            render(int(f[len("debug_iter"):-len(".png")]), 1, False)
+    return want
+
+
+def capture_phase(smi):
+    """The "[capture]" phase: the decoders, the capture written, trained
+    through train_torch.main on the per-pixel SH path and its test views
+    rendered through render_torch.main, with cv2 and Pillow hidden.
+    Returns the phase's launches by kernel."""
+    import torch
+
+    import render_torch
+    import train_torch
+    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import checkpoint as ckpt
+    from gaussian_splatting_torch.dataio import dataset
+    from gaussian_splatting_torch.dataio.png import read_png
+    from gaussian_splatting_torch.ops import render_sh
+    from gaussian_splatting_torch.runner import TrainingRunner, derive_capacity
+
+    totals = collections.Counter()
+    with without_image_packages(), tempfile.TemporaryDirectory() as tmp:
+        check_decoders(smi)
+
+        # the capture
+        root = os.path.join(tmp, "capture")
+        secret = refscale_config().synthetic_points
+        cap = write_capture(root, CAPTURE_VIEWS, CAPTURE_POINTS, CAPTURE_WIDTH,
+                            CAPTURE_HEIGHT, focal=CAPTURE_FOCAL, secret_points=secret,
+                            device=DEVICE)
+        print(f"[capture] {CAPTURE_VIEWS} views of {secret} secret points at "
+              f"{CAPTURE_WIDTH}x{CAPTURE_HEIGHT} (images_{CAPTURE_DOWNSAMPLE}/, PNG) and "
+              f"{CAPTURE_POINTS} SfM points written: {cap['render_s']:.1f} s rendering, "
+              f"{cap['total_s']:.1f} s in all with {CAPTURE_THREADS} writer threads ({smi})")
+
+        # train it through the CLI on the per-pixel SH path
+        out = os.path.join(tmp, "run")
+        steps, evals, events, decodes, decoders = [], [], [], [], []
+        by_n_sh = collections.Counter()
+
+        def count(name):
+            return lambda feat, basis, *a, **k: by_n_sh.update([(name, basis.shape[0])])
+
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with call_times(trainer, "train_step", steps, sync=False), \
+                call_times(TrainingRunner, "evaluate", evals, sync=True), \
+                call_times(TrainingRunner, "_densify", events, sync=True), \
+                call_times(dataset, "read_rgb", decodes, sync=False,
+                           after=lambda *a: decoders.append(dataset.last_decoder)), \
+                call_times(render_sh, "render_sh_fwd_cuda", [], False, count("render_sh_fwd")), \
+                call_times(render_sh, "render_sh_bwd_cuda", [], False, count("render_sh_bwd")):
+            runner = train_torch.main(cli_argv(
+                out, preset="7k", dataset_path=root, downsample_factor=CAPTURE_DOWNSAMPLE,
+                use_sh_precompute=False,
+                **dict(CLI_SCHEDULE, profile_start=CAPTURE_PROFILE_START)))
+        run_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        totals.update(launches)
+        peak_mem = torch.cuda.max_memory_allocated()
+        cfg, m = runner.config, runner.metrics
+        n_views, n_test = len(runner.data.images), len(runner.test_split)
+        n_alive = int(runner.state.alive.sum())
+
+        got = collections.Counter({k: v for k, v in launches.items()
+                                   if k in ("render_fwd", "render_bwd")})
+        got.update(by_n_sh)
+        want = expected_capture_launches(runner, out)
+        print(f"[capture] launches {launches}; B3/B4 by n_sh "
+              f"{dict(sorted(by_n_sh.items()))}")
+        if got != want or set(launches) - {"render_fwd", "render_bwd", "render_sh_fwd",
+                                           "render_sh_bwd"}:
+            raise AssertionError(f"[capture] expected launches {dict(want)}, got {dict(got)}")
+        if {n for (_, n) in by_n_sh} != {4, 9, 16}:
+            raise AssertionError(f"[capture] B3/B4 not at n_sh 4, 9 and 16: {by_n_sh}")
+        n_test_want = -(-CAPTURE_VIEWS // cfg.test_split_ratio)  # every 8th: 24 of 185
+        if (n_views, n_test, len(runner.train_split)) != (
+                CAPTURE_VIEWS, n_test_want, CAPTURE_VIEWS - n_test_want):
+            raise AssertionError(f"[capture] {n_views} views, {n_test} for test")
+        slots = derive_capacity(CAPTURE_POINTS, cfg)  # 2,097,152 for 138,766
+        if runner.state.alive.shape[0] != slots or m.num_gaussians[0] != CAPTURE_POINTS:
+            raise AssertionError(f"[capture] {m.num_gaussians[0]} points in "
+                                 f"{runner.state.alive.shape[0]} slots")
+        if len(m.train_psnr) != CLI_ITERS or m.eval_iters != [0, CLI_CHECKPOINT, CLI_ITERS]:
+            raise AssertionError(f"[capture] {len(m.train_psnr)} steps, evals {m.eval_iters}")
+        for k, v in runner.state.params.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"[capture] params['{k}'] not finite")
+        if not all(np.isfinite(m.train_psnr + m.test_psnr)):
+            raise AssertionError("[capture] a PSNR is not finite")
+        # each event's accounting, alive = before - deleted + cloned + split
+        # (a split's second sample takes a free slot), and a scene that grows
+        # from its SfM points: an event may delete more than it adds
+        adc = [(e["iter"], m.num_gaussians[e["iter"]], e["deleted"], e["cloned"],
+                e["split"], e["alive"]) for e in m.adc_events]
+        if ([a[0] for a in adc] != CLI_ADC_ITERS
+                or any(b - d + c + sp != a for _, b, d, c, sp, a in adc)
+                or not (adc[0][-1] > CAPTURE_POINTS and n_alive > CAPTURE_POINTS)):
+            raise AssertionError(f"[capture] ADC (iteration, alive before, deleted, "
+                                 f"cloned, split, alive after) {adc}, {n_alive} at the end")
+        if not m.test_psnr[1] > m.test_psnr[0]:
+            raise AssertionError(f"[capture] test PSNR did not rise: {m.test_psnr}")
+        with open(os.path.join(out, "metrics.json")) as f:
+            saved = json.load(f)
+        if saved["eval_iters"] != m.eval_iters or saved["test_psnr"] != m.test_psnr:
+            raise AssertionError("[capture] metrics.json does not hold the run's metrics")
+        state, it, _ = ckpt.load_checkpoint(os.path.join(out, "ckpt_final.npz"), cfg,
+                                            device=DEVICE)
+        if it != CLI_ITERS or not torch.equal(state.alive, runner.state.alive):
+            raise AssertionError("[capture] ckpt_final.npz does not hold the final state")
+        del state
+        ply = ckpt.import_ply(os.path.join(out, "scene_final.ply"), device="cpu")
+        if ply.num_alive() != n_alive:
+            raise AssertionError(f"[capture] scene_final.ply has {ply.num_alive()} of {n_alive}")
+        del ply
+        # every image decoded once by the port's PNG decoder: the first for the
+        # image size, then each as a step or an eval first uses it
+        if set(decoders) != {"png"} or len(decodes) != 1 + len(runner._gt_dev):
+            raise AssertionError(f"[capture] {len(decodes)} decodes by {set(decoders)} for "
+                                 f"{len(runner._gt_dev)} staged images")
+
+        starts = [a for a, _ in steps]
+        step_ms = np.diff(starts) * 1e3
+        median_ms = float(np.median(step_ms))
+        decoded = np.searchsorted(starts, [a for a, _ in decodes], side="right") - 1
+        in_steps = sorted({int(k) for k in decoded if 0 <= k < len(starts) - 1})
+        plain = np.delete(step_ms, in_steps)
+        decode_s = sum(b - a for a, b in decodes)
+        eval_ms = [(b - a) * 1e3 for a, b in evals]
+        print(f"[capture] train_torch.main 7k --dataset_path (capture) --downsample_factor "
+              f"{CAPTURE_DOWNSAMPLE} --use_sh_precompute false: {CLI_ITERS} iterations of "
+              f"{len(runner.train_split)} training views ({n_test} test), "
+              f"{CAPTURE_POINTS} points in {runner.state.alive.shape[0]} slots, "
+              f"{run_s:.1f} s ({smi})")
+        print(f"[capture] step under the runner: median {median_ms:.3f} ms between step "
+              f"starts over {len(step_ms)} intervals, p90 {np.percentile(step_ms, 90):.3f}; "
+              f"{len(in_steps)} steps decoded an image (median without them "
+              f"{np.median(plain):.3f} ms); {len(decodes)} decodes in "
+              f"{decode_s:.2f} s, {decode_s * 1e3 / len(decodes):.3f} ms an image "
+              f"(host clock; {smi})")
+        print(f"[capture] ADC (iteration, alive before, deleted, cloned, split, alive "
+              f"after): {adc}; {n_alive} alive at the end")
+        print(f"[capture] evals at {m.eval_iters}: {', '.join(f'{x:.3f}' for x in eval_ms)} "
+              f"ms for {n_test} views, {np.median(eval_ms) / n_test:.3f} ms per view "
+              f"(host clock; the first decodes the test images; {smi})")
+        print(f"[capture] test PSNR at {m.eval_iters}: "
+              f"{', '.join(f'{x:.4f}' for x in m.test_psnr)}; SSIM "
+              f"{', '.join(f'{x:.4f}' for x in m.test_ssim)} ({smi})")
+        print(f"[capture] peak {runner.peak_splats} splats in a train step; peak device "
+              f"memory {peak_mem / 2**30:.3f} GiB (max_memory_allocated; {smi})")
+        idx = int(runner.train_split[0])
+        cam, pose = runner._camera(idx)
+        kw = dict(config=cfg, camera_hw=(cam.height, cam.width),
+                  n_sh_band=trainer.sh_band_for_iteration(cfg, CLI_ITERS))
+        gt = runner.gt_image_dev(idx)
+        bg = runner.background_for(CLI_ITERS - 1)
+        busy_ms = profile_step(lambda: trainer.train_step(runner.state, gt, cam.K, pose,
+                                                          bg, **kw), median_ms, "capture")
+        print(f"[capture] device busy {busy_ms:.3f} ms of the {median_ms:.3f} ms step: "
+              f"host share {1 - busy_ms / median_ms:.3f} ({smi})")
+        test = [int(i) for i in runner.test_split]
+        del runner, gt, bg, cam, pose
+
+        # the test views through render_torch, from a model that lists only them
+        root2 = os.path.join(tmp, "capture_test")
+        write_colmap_model(os.path.join(root2, "sparse", "0"), cap["camera"],
+                           cap["qvecs"][test], cap["tvecs"][test],
+                           [cap["names"][i] for i in test], cap["xyz"], cap["rgb"])
+        images = f"images_{CAPTURE_DOWNSAMPLE}"
+        os.symlink(os.path.join(root, images), os.path.join(root2, images))
+        renders = os.path.join(tmp, "renders")
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        views = render_torch.main([
+            os.path.join(out, "ckpt_final.npz"), "--dataset_path", root2,
+            "--downsample_factor", str(CAPTURE_DOWNSAMPLE), "--depth", "--out", renders,
+            "--device", DEVICE])
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        totals.update(launches)
+        pngs = sorted(os.listdir(renders))
+        print(f"[capture] render_torch.main --dataset_path (the {len(test)} test views) "
+              f"--depth: launches {launches}, {len(pngs)} PNGs, {render_s:.1f} s, "
+              f"{render_s * 1e3 / len(test):.3f} ms a view with the checkpoint's load "
+              f"and both PNGs ({smi})")
+        if launches != {"render_fwd": len(test), "depth_fwd": len(test)}:
+            raise AssertionError(f"[capture] render_torch launches {launches}")
+        if len(pngs) != 2 * len(test) or len(views) != len(test):
+            raise AssertionError(f"[capture] {len(views)} views, {len(pngs)} PNGs")
+        psnrs = []
+        for j, v in enumerate(views):
+            img = (v["image"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+            if img.shape != (CAPTURE_HEIGHT, CAPTURE_WIDTH, 3):
+                raise AssertionError(f"[capture] {v['name']}: shape {img.shape}")
+            if not np.array_equal(read_png(os.path.join(renders, f"{v['name']}.png")), img):
+                raise AssertionError(f"[capture] {v['name']}.png is not the returned image")
+            dn = v["depth"].cpu().numpy()
+            dimg = (np.where(dn < 0, 0, dn / max(float(dn.max()), 1e-6)) * 255).astype(np.uint8)
+            back = read_png(os.path.join(renders, f"{v['name']}_depth.png"))
+            if not (np.array_equal(back[..., 0], dimg) and (dn > 0).any()):
+                raise AssertionError(f"[capture] {v['name']}_depth.png is not the depth")
+            want_img = read_png(os.path.join(root, images, cap["names"][test[j]]))
+            mse = np.mean((img / 255.0 - want_img / 255.0) ** 2)
+            psnrs.append(float(-10 * np.log10(max(mse, 1e-12))))
+        print(f"[capture] renders against the capture's test images (precomputed SH, "
+              f"not the per-pixel path trained): median PSNR {np.median(psnrs):.4f}, "
+              f"min {min(psnrs):.4f}, max {max(psnrs):.4f} ({smi})")
     return dict(totals)
 
 
@@ -2057,7 +2521,12 @@ def main():
     with phase("training CLI"):
         cli_launches = cli_phase(smi)
 
-    # 12. multi-GPU training: the ranks share the one card
+    # 12. a COLMAP capture of garden's shape through train_torch.py (per-pixel
+    # SH) and render_torch.py, with the port's own image decoders
+    with phase("capture"):
+        capture_launches = capture_phase(smi)
+
+    # 13. multi-GPU training: the ranks share the one card
     mgpu_launches = mgpu_phase(smi)
 
     def entry(key, name, source, replaces, launches, err, **extra):
@@ -2075,32 +2544,34 @@ def main():
               "gaussian_splatting_tpu/ops/render.py:525",
               launches["render_fwd"] + train_launches["render_fwd"]
               + adc_launches["render_fwd"] + cli_launches["render_fwd"]
-              + mgpu_launches["render_fwd"], img_err,
+              + capture_launches["render_fwd"] + mgpu_launches["render_fwd"], img_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("depth_fwd", "depth_fwd (B5, depth)",
               "gaussian_splatting_torch/csrc/depth_fwd.cu",
               "gaussian_splatting_tpu/ops/depth.py:53",
-              launches["depth_fwd"], d_err,
+              launches["depth_fwd"] + capture_launches["depth_fwd"], d_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("render_bwd", "render_bwd (B2, DC backward)",
               "gaussian_splatting_torch/csrc/render_bwd.cu",
               "gaussian_splatting_tpu/ops/render.py:635",
               train_launches["render_bwd"] + adc_launches["render_bwd"]
-              + cli_launches["render_bwd"] + mgpu_launches["render_bwd"], b2_abs,
+              + cli_launches["render_bwd"] + capture_launches["render_bwd"]
+              + mgpu_launches["render_bwd"], b2_abs,
               max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
               "gaussian_splatting_torch/csrc/render_sh_fwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:93",
               sh_launches["render_sh_fwd"] + sh_train_launches["render_sh_fwd"]
-              + mgpu_launches["render_sh_fwd"], b3_err,
+              + capture_launches["render_sh_fwd"] + mgpu_launches["render_sh_fwd"], b3_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("render_sh_bwd", "render_sh_bwd (B4, per-pixel SH backward)",
               "gaussian_splatting_torch/csrc/render_sh_bwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:187",
-              sh_train_launches["render_sh_bwd"] + mgpu_launches["render_sh_bwd"], b4_abs,
+              sh_train_launches["render_sh_bwd"] + capture_launches["render_sh_bwd"]
+              + mgpu_launches["render_sh_bwd"], b4_abs,
               max_rel_err_per_row=b4_rel, run_to_run_spread=b4_spread),
     ]
     for key, label, source, replaces, point in PROBES:

@@ -14,13 +14,21 @@ Initialisation follows the reference (dataloader.py:43-67, utils.py:19-37):
 - quat     <- identity
 - rgb      <- point_rgb / 255 / SH_0   (SH DC convention)
 
-Images are decoded by OpenCV or, without it, Pillow, imported only where an
-image is read: the synthetic scene needs neither.
+Images (``read_rgb``) are told apart by their first bytes, not their
+names.  PNG is decoded by the port's own decoder (``png.read_png``: it is
+lossless, so its output is OpenCV's bit for bit); JPEG by OpenCV where it
+is installed, so the port sees the JAX package's exact input, else by
+Pillow, else by the port's own decoder (``jpeg.read_jpeg``, baseline and
+extended-sequential); any other format by OpenCV or Pillow.  Those two are
+imported only where such an image is read: the synthetic scene, and a
+capture of PNG or baseline JPEG images, need neither.  ``last_decoder``
+names the decoder of the last image read: "png", "jpeg", "cv2" or "pil".
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
 from typing import Dict, List
 
@@ -28,31 +36,56 @@ import numpy as np
 
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.dataio import colmap
+from gaussian_splatting_torch.dataio.jpeg import SOI as JPEG_SOI
+from gaussian_splatting_torch.dataio.jpeg import read_jpeg
+from gaussian_splatting_torch.dataio.png import SIGNATURE as PNG_SIGNATURE
+from gaussian_splatting_torch.dataio.png import read_png
 from gaussian_splatting_torch.geometry import SH_0
 from gaussian_splatting_torch.structs import GaussianScene
 
 
-def read_rgb(path: str) -> np.ndarray:
-    """uint8 (H, W, 3) RGB of an image file, decoded by OpenCV, or by
-    Pillow where OpenCV is not installed."""
+# the decoder of the last image read_rgb decoded: "png", "jpeg", "cv2", "pil"
+last_decoder = None
+
+
+def _optional(name):
     try:
-        import cv2
+        return importlib.import_module(name)
     except ImportError:
-        cv2 = None
+        return None
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """uint8 (H, W, 3) RGB of an image file, as ``cv2.imread`` decodes it
+    (EXIF orientation applied), by the decoder its signature calls for."""
+    global last_decoder
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
+        img = read_png(path)
+        last_decoder = "png"
+        return img
+    cv2 = _optional("cv2")
     if cv2 is not None:
         img = cv2.imread(path)
         if img is None:
-            raise FileNotFoundError(path)
+            raise ValueError(f"{path}: OpenCV cannot decode this file")
+        last_decoder = "cv2"
         return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ImportError(
-            f"reading {path} needs an image decoder: neither OpenCV (cv2) nor "
-            "Pillow (PIL) is installed"
-        ) from None
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
+    if _optional("PIL") is not None:
+        from PIL import Image, ImageOps
+
+        with Image.open(path) as im:
+            img = np.asarray(ImageOps.exif_transpose(im).convert("RGB"))
+        last_decoder = "pil"
+        return img
+    if head[:2] == JPEG_SOI:
+        img = read_jpeg(path)
+        last_decoder = "jpeg"
+        return img
+    raise ImportError(
+        f"reading {path} needs OpenCV (cv2) or Pillow (PIL), and neither is "
+        "installed: the port decodes PNG and baseline JPEG itself, not this format")
 
 
 @dataclasses.dataclass

@@ -1,10 +1,18 @@
-"""ctypes bindings for the native COLMAP reader (``native/colmap_reader.cpp``;
-counterpart of ``gaussian_splatting_tpu/dataio/native.py``).
+"""ctypes bindings for the port's native host code, built with ``g++`` at
+first use (counterpart of ``gaussian_splatting_tpu/dataio/native.py``).
 
-The shared library is built with ``g++`` at first use into the package's
-``_build_cache/`` (``native/`` is left as it is), under a name keyed by a
-hash of the source; if no compiler is found or the build fails, every
-entry point returns None and the numpy parsers of ``colmap.py`` run.
+Two libraries, each from one source under ``dataio/csrc/``:
+
+- ``colmap_reader`` (``csrc/colmap_reader.cpp``, the port's copy of
+  ``native/colmap_reader.cpp``): the COLMAP binary reader.  If no compiler
+  is found or the build fails, its entry points return None and the numpy
+  parsers of ``colmap.py`` run.
+- ``image_decode`` (``csrc/image_decode.cpp``): PNG row unfiltering and the
+  JPEG decoder of ``png.py`` and ``jpeg.py``.  There is no fallback: a
+  failed build raises with the compiler's standard error.
+
+Each is built into the package's ``_build_cache/`` under a name keyed by a
+hash of its source and the flags.
 """
 
 from __future__ import annotations
@@ -19,21 +27,26 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "colmap_reader.cpp"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"colmap_reader": CSRC / "colmap_reader.cpp",
+           "image_decode": CSRC / "image_decode.cpp"}
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build_cache"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 _lib = None
 _lib_failed = False
+_decoders = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes())
-    return BUILD_DIR / f"libcolmap_reader_{h.hexdigest()[:16]}.so"
+def library_path(name: str = "colmap_reader") -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCES[name].read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _build(path: Path) -> None:
-    """Compile the reader into ``path``, through a temporary file and a
-    rename, so processes that build at once never load a partial file."""
+def _build(name: str, path: Path) -> None:
+    """Compile library ``name`` into ``path``, through a temporary file and
+    a rename, so processes that build at once never load a partial file.
+    Raises OSError without a compiler, CalledProcessError (with the
+    compiler's stderr) when it fails."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise OSError("no C++ compiler (g++ or c++) on PATH")
@@ -41,12 +54,52 @@ def _build(path: Path) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)], check=True,
-                       capture_output=True, timeout=120)
+        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCES[name])], check=True,
+                       capture_output=True, text=True, timeout=120)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def decoders():
+    """The image decoders' library, built at first use.  Raises
+    RuntimeError with the compiler's output if it cannot be built."""
+    global _decoders
+    if _decoders is not None:
+        return _decoders
+    path = library_path("image_decode")
+    try:
+        if not path.exists():
+            _build("image_decode", path)
+        lib = ctypes.CDLL(str(path))
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"building the image decoders ({SOURCES['image_decode']}) "
+                           f"failed:\n{e.stderr}") from None
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"building the image decoders ({SOURCES['image_decode']}) "
+                           f"failed: {e}") from None
+    P, L = ctypes.c_void_p, ctypes.c_int64
+    for name, args in [
+        # in, height, row_bytes, bpp, out, err, errlen
+        ("gs_png_unfilter", [P, L, L, L, P, P, L]),
+        # data, size, info (4 x int32), err, errlen
+        ("gs_jpeg_header", [P, L, P, P, L]),
+        # data, size, out, err, errlen
+        ("gs_jpeg_decode", [P, L, P, P, L]),
+    ]:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    _decoders = lib
+    return lib
+
+
+def check(code: int, err, path) -> None:
+    """Raise ValueError naming ``path`` with the message in ``err`` (a
+    ctypes string buffer) when a decoder returned nonzero."""
+    if code:
+        raise ValueError(f"{path}: {err.value.decode(errors='replace')}")
 
 
 def _load():
@@ -54,9 +107,9 @@ def _load():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        path = library_path()
+        path = library_path("colmap_reader")
         if not path.exists():
-            _build(path)
+            _build("colmap_reader", path)
         lib = ctypes.CDLL(str(path))
     except (OSError, subprocess.SubprocessError):
         _lib_failed = True

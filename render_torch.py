@@ -155,12 +155,14 @@ def render_views(scene_path, *, out, orbit=0, dataset_path="", downsample_factor
     return views
 
 
-def main():
+def main(argv=None):
+    """Parse ``argv`` (the command line when None), render, and return
+    ``render_views``' list of views."""
     parser = build_parser()
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     if args.orbit <= 0 and not args.dataset_path:
         parser.error("give --orbit N or --dataset_path DIR")
-    render_views(
+    return render_views(
         args.scene, out=args.out, orbit=args.orbit, dataset_path=args.dataset_path,
         downsample_factor=args.downsample_factor, width=args.width,
         height=args.height, focal=args.focal, sh_band=args.sh_band,

@@ -141,17 +141,24 @@ def test_native_and_numpy_readers_agree(dataset_dir, monkeypatch):
         np.testing.assert_array_equal(a.params, b.params)
 
 
-def test_image_decoders(dataset_dir, monkeypatch):
-    """Pillow decodes as OpenCV does where cv2 is missing; with neither,
-    reading an image raises an ImportError that names both."""
+def test_image_decoders(dataset_dir, tmp_path, monkeypatch):
+    """A PNG decodes as OpenCV does with cv2 missing, and with Pillow
+    missing too, through the port's read_png; with neither, a format the
+    port does not decode itself raises an ImportError that names both
+    packages and the formats the port decodes."""
     root, _ = dataset_dir
     path = os.path.join(root, f"images_{DOWNSAMPLE}", "frame_0001.png")
     want = tds.read_rgb(path)
+    bmp = str(tmp_path / "frame.bmp")
+    cv2.imwrite(bmp, cv2.cvtColor(want, cv2.COLOR_RGB2BGR))
     monkeypatch.setitem(sys.modules, "cv2", None)
     np.testing.assert_array_equal(tds.read_rgb(path), want)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="OpenCV.*Pillow"):
-        tds.read_rgb(path)
+    np.testing.assert_array_equal(tds.read_rgb(path), want)
+    assert tds.last_decoder == "png"
+    with pytest.raises(ImportError, match="OpenCV.*Pillow.*PNG and baseline JPEG") as e:
+        tds.read_rgb(bmp)
+    assert bmp in str(e.value)
     # the synthetic scene needs no decoder
     assert tds.make_synthetic_scene_data(50, 4).xyz.shape == (50, 3)
 
