@@ -24,21 +24,26 @@ counters, that each went through its kernels:
 - the TPU probes E1-E3 (gaussian_splatting_torch/experiments): each
   probe's full sweep, every point's kernel against its plain version,
   with kernel, plain and library-call times and the bound;
-- the training CLI: train_torch.main on the synthetic reference-scale scene
-  of runs/refscale7k/config.yaml (1,200,000 secret points, 96 ring views at
-  1296x840, 200,000 init points in 2,097,152 slots, DC colour path; kernel
-  B1 for the ground truth, steps and evals, B2 for steps), cut to 400
-  iterations with three ADC events, an opacity reset, every SH band,
-  evals, a debug image and a periodic checkpoint, then a second call that
-  resumes from that checkpoint for 50 iterations; checked for the launch
-  counts the schedule implies, finite parameters, a growing scene, a
-  rising test PSNR and the run's files;
+- the reference-scale run ("[refscale]"): gaussian_splatting_torch/
+  experiments/refscale_run.py, the JAX package's run of runs/refscale7k
+  through train_torch.main at full width and depth: 1,200,000 secret
+  points, 96 ring views at 1296x840, 200,000 init points in 2,097,152
+  slots, DC colour path, the full 7k schedule (57 ADC events, opacity
+  resets at 3001 and 6002, SH bands at 1000, 2000, 3000, 15 evals, debug
+  images, a checkpoint at 3500; kernel B1 for the ground truth, steps and
+  evals, B2 for steps), then its bench sample; checked for the launches the
+  schedule implies, ADC and evals at the record's iterations
+  (runs/refscale7k/metrics.json) with each event's accounting, the resets,
+  finite parameters, the test PSNR against floors under the JAX run's, the
+  run's files and the bench sample's layout against the committed
+  bench_scene_sample.npz; then a second call that resumes from the
+  checkpoint at 3500 across the ADC at 3600;
 - a COLMAP capture ("[capture]"): the port's image decoders built with
   g++ and the committed JPEG fixtures held to OpenCV's decodes, then a
   capture of garden's shape (185 views at 1297x840 in images_4/ as PNG,
   138,766 SfM points) rendered from the reference-scale scene's 1,200,000
   secret points, trained through train_torch.main --dataset_path on the
-  per-pixel SH path for 400 iterations with the CLI phase's schedule
+  per-pixel SH path for 400 iterations with a compressed schedule
   (kernels B1, B2 at band 0, B3, B4 at n_sh 4, 9 and 16), with OpenCV and
   Pillow hidden so the port's PNG decoder reads every image, then its 24
   test views rendered with depth through render_torch.main --dataset_path
@@ -134,15 +139,13 @@ ADC_ITERATION = 1000
 BOX_TOL = 1e-4
 BOX_ULPS = 4
 
-# the training CLI: the synthetic reference-scale scene of
-# runs/refscale7k/config.yaml at full width, its 7,000 iterations cut to
-# CLI_ITERS with the schedule compressed into them: ADC at 100, 200, 300, an
-# opacity reset at 250, SH bands at 100, 200, 300, evals at 0, 200 and the
-# end, a debug image and a checkpoint at 200, a torch.profiler trace of 2
-# steps; then a resume from the checkpoint to CLI_RESUME_ITERS
+# the capture's schedule: the 7,000 iterations of runs/refscale7k/config.yaml
+# cut to CLI_ITERS with the schedule compressed into them: ADC at 100, 200,
+# 300, an opacity reset at 250, SH bands at 100, 200, 300, evals at 0, 200
+# and the end, a debug image and a checkpoint at 200, a torch.profiler trace
+# of 2 steps
 REFSCALE_CONFIG = os.path.join(ROOT, "runs", "refscale7k", "config.yaml")
 CLI_ITERS = 400
-CLI_RESUME_ITERS = 250
 CLI_CHECKPOINT = 200
 CLI_SCHEDULE = dict(
     num_iters=CLI_ITERS, test_eval_interval=200, print_interval=50,
@@ -152,6 +155,23 @@ CLI_SCHEDULE = dict(
     checkpoint_interval=CLI_CHECKPOINT, profile_start=20, profile_steps=2,
 )
 CLI_ADC_ITERS = [100, 200, 300]
+
+# the reference-scale run ("[refscale]"): gaussian_splatting_torch/
+# experiments/refscale_run.py, the full 7k schedule of the JAX package's run
+# in runs/refscale7k through train_torch.main, with a torch.profiler trace of
+# 2 steps, held to that run's record (metrics.json); then a resume from its
+# checkpoint at 3500 across the ADC at 3600, and its bench sample against the
+# committed one.  The test PSNR floors are the JAX run's max 25.76 less 1 dB
+# and its 25.25 at 7000 less 2 dB
+REFSCALE_RECORD = os.path.join(ROOT, "runs", "refscale7k", "metrics.json")
+REFSCALE_TRACE = dict(profile_start=20, profile_steps=2)
+REFSCALE_CHECKPOINT = 3500
+REFSCALE_RESUME_ITERS = 3610
+REFSCALE_RESETS = [3001, 6002]
+REFSCALE_LATE_STEPS = 500  # after the last ADC event (6400): the final scene
+REFSCALE_MIN_MAX_PSNR = 24.76
+REFSCALE_MIN_FINAL_PSNR = 23.25
+BENCH_SAMPLE = os.path.join(ROOT, "bench_scene_sample.npz")
 
 # The H100 SXM's peaks (NVIDIA's data sheet, at its 700 W limit): device
 # memory and float32 outside the tensor cores.  A kernel's bound is the
@@ -1107,11 +1127,14 @@ def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
     return saved
 
 
-def cli_phase(smi):
-    """The training CLI on the synthetic reference-scale scene: one run of
-    CLI_ITERS iterations, its checks and numbers, one profiled step at its
-    final state, then a run resumed from its periodic checkpoint.  Returns
-    the B1 and B2 launches of the two runs."""
+def refscale_phase(smi):
+    """The "[refscale]" phase: refscale_run.main into a temporary directory
+    (the full 7k schedule of runs/refscale7k through train_torch.main, then
+    its bench sample), checked against the JAX run's record, its numbers,
+    one profiled step at its final state, then a run resumed from its
+    checkpoint at REFSCALE_CHECKPOINT to REFSCALE_RESUME_ITERS.  Each 1.5 GB
+    checkpoint is deleted once it is checked.  Returns the B1 and B2
+    launches of the two runs."""
     import shutil
 
     import torch
@@ -1119,109 +1142,187 @@ def cli_phase(smi):
     import train_torch
     from gaussian_splatting_torch import _build, trainer
     from gaussian_splatting_torch import checkpoint as ckpt
-    from gaussian_splatting_torch.runner import TrainingRunner
+    from gaussian_splatting_torch.experiments import refscale_run
+    from gaussian_splatting_torch.runner import TrainingRunner, scheduled_events
 
+    with open(REFSCALE_RECORD) as f:
+        record = json.load(f)
     totals = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         out, out2 = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
-        print(f"[cli] {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free for the "
+        print(f"[refscale] {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free for the "
               f"runs' files; {smi}")
-        steps, evals, events = [], [], []
+        steps, evals, events, resets = [], [], [], []
         torch.cuda.reset_peak_memory_stats()
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
         with call_times(trainer, "train_step", steps, sync=False), \
+                call_times(trainer, "reset_opacity", resets, sync=True), \
                 call_times(TrainingRunner, "evaluate", evals, sync=True), \
                 call_times(TrainingRunner, "_densify", events, sync=True):
-            runner = train_torch.main(cli_argv(out, **CLI_SCHEDULE))
+            runner = refscale_run.main([out, "--device", DEVICE], **REFSCALE_TRACE)
         run_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         totals.update(launches)
         peak_mem = torch.cuda.max_memory_allocated()
-        m = runner.metrics
-        saved = check_cli_run(runner, out, launches, 0, CLI_ITERS, "cli")
-        alive = [e["alive"] for e in m.adc_events]
-        if [e["iter"] for e in saved["adc_events"]] != CLI_ADC_ITERS:
-            raise AssertionError(f"[cli] ADC events {saved['adc_events']}")
-        n_init = runner.config.synthetic_init_points
-        if m.num_gaussians[0] != n_init or not (alive[0] > n_init and alive[-1] > n_init):
-            raise AssertionError(f"[cli] the scene did not grow from {n_init}: {alive}")
-        if not m.test_psnr[-1] > m.test_psnr[0]:
-            raise AssertionError(f"[cli] test PSNR did not rise: {m.test_psnr}")
-        state, it, _ = ckpt.load_checkpoint(os.path.join(out, "ckpt_final.npz"),
-                                            runner.config, device=DEVICE)
-        if it != CLI_ITERS or not torch.equal(state.alive, runner.state.alive):
-            raise AssertionError("[cli] ckpt_final.npz does not hold the final state")
-        del state
+        cfg, m = runner.config, runner.metrics
+        n_iters, n_test = cfg.num_iters, len(runner.test_split)
         n_alive = int(runner.state.alive.sum())
-        ply = ckpt.import_ply(os.path.join(out, "scene_final.ply"), device="cpu")
-        if ply.num_alive() != n_alive:
-            raise AssertionError(f"[cli] scene_final.ply has {ply.num_alive()} of {n_alive}")
-        if not os.path.isfile(os.path.join(out, "trace", "trace.json")):
-            raise AssertionError("[cli] no torch.profiler trace")
+        check_cli_run(runner, out, launches, 0, n_iters, "refscale")
 
-        step_ms = np.diff([a for a, _ in steps]) * 1e3
+        # the numbers, beside the JAX run's record, before the checks
+        starts = [a for a, _ in steps]
+        step_ms = np.diff(starts) * 1e3
         median_ms = float(np.median(step_ms))
+        # the steps at the final state's size, for its profiled step
+        late_ms = float(np.median(step_ms[-REFSCALE_LATE_STEPS:]))
         eval_ms = [(b - a) * 1e3 for a, b in evals]
         adc_ms = [(b - a) * 1e3 for a, b in events]
-        n_test = len(runner.test_split)
-        cfg = runner.config
-        print(f"[cli] {CLI_ITERS} iterations of {len(runner.data.images)} views at "
-              f"{cfg.synthetic_width}x{cfg.synthetic_height}, "
-              f"{runner.data.xyz.shape[0]} ground-truth gaussians, "
-              f"{n_init} init points in {runner.state.alive.shape[0]} slots: "
-              f"{run_s:.1f} s for train_torch.main ({smi})")
-        print(f"[cli] step under the runner: median {median_ms:.3f} ms between step "
+        reset_ms = [(b - a) * 1e3 for a, b in resets]
+        # a reset runs after its iteration's step, before the next one starts
+        reset_iters = [int(np.searchsorted(starts, a, side="right")) - 1 for a, _ in resets]
+        adc = [(e["iter"], m.num_gaussians[e["iter"]], e["deleted"], e["cloned"],
+                e["split"], e["alive"], e["cap_hit"]) for e in m.adc_events]
+        rec_alive = {e["iter"]: e["alive"] for e in record["adc_events"]}
+        print(f"[refscale] refscale_run.main: {n_iters} iterations of "
+              f"{len(runner.data.images)} views at {cfg.synthetic_width}x"
+              f"{cfg.synthetic_height}, {runner.data.xyz.shape[0]} ground-truth gaussians, "
+              f"{cfg.synthetic_init_points} init points in {runner.state.alive.shape[0]} "
+              f"slots: {run_s:.1f} s wall, the bench sample included ({smi})")
+        print(f"[refscale] step under the runner: median {median_ms:.3f} ms between step "
               f"starts over {len(step_ms)} intervals, min {step_ms.min():.3f}, p90 "
-              f"{np.percentile(step_ms, 90):.3f} (host clock; {smi})")
-        print(f"[cli] ground truth: {runner.gt_seconds * 1e3 / len(runner.data.images):.3f} "
-              f"ms per view, peak {runner.gt_peak_splats} splats in a view ({smi})")
-        print(f"[cli] ADC events at {CLI_ADC_ITERS}: "
-              f"{', '.join(f'{x:.3f}' for x in adc_ms)} ms, alive {alive} "
-              f"(host clock to the stats' read; {smi})")
-        print(f"[cli] evals at {m.eval_iters}: {', '.join(f'{x:.3f}' for x in eval_ms)} ms "
-              f"for {n_test} views, {np.median(eval_ms) / n_test:.3f} ms per view "
-              f"(host clock; {smi})")
-        print(f"[cli] test PSNR at {m.eval_iters}: "
-              f"{', '.join(f'{x:.4f}' for x in m.test_psnr)}; SSIM "
-              f"{', '.join(f'{x:.4f}' for x in m.test_ssim)} ({smi})")
-        print(f"[cli] peak {runner.peak_splats} splats in a train step, truncated "
-              f"{m.truncated_cells} cells in {m.truncated_steps} steps; peak device "
+              f"{np.percentile(step_ms, 90):.3f}, median of the last {REFSCALE_LATE_STEPS} "
+              f"{late_ms:.3f}; ground truth "
+              f"{runner.gt_seconds * 1e3 / len(runner.data.images):.3f} ms a view (host "
+              f"clock; {smi})")
+        print(f"[refscale] {len(adc_ms)} ADC events: median {np.median(adc_ms):.3f} ms, "
+              f"max {max(adc_ms):.3f}, {sum(adc_ms) / 1e3:.2f} s in all; resets at "
+              f"{reset_iters}: {', '.join(f'{x:.3f}' for x in reset_ms)} ms; evals "
+              f"{np.median(eval_ms) / n_test:.3f} ms a view (median of {len(eval_ms)} evals "
+              f"of {n_test} views) (host clock to an idle device; {smi})")
+        print(f"[refscale] peak {runner.peak_splats} splats in a train step, truncated "
+              f"{m.truncated_cells} cells in {m.truncated_steps} steps (JAX run: "
+              f"{record['truncated_cells']} in {record['truncated_steps']}); peak device "
               f"memory {peak_mem / 2**30:.3f} GiB (max_memory_allocated; {smi})")
+        print(f"[refscale] eval: iteration, seconds into refscale_run.main (host clock; "
+              f"{smi}), test PSNR, SSIM | JAX run's PSNR, SSIM")
+        for it, (a, _), p, q in zip(m.eval_iters, evals, m.test_psnr, m.test_ssim):
+            j = record["eval_iters"].index(it) if it in record["eval_iters"] else None
+            rec = (f"{record['test_psnr'][j]:.4f}, {record['test_ssim'][j]:.4f}"
+                   if j is not None else "-")
+            print(f"[refscale]   {it:5d}  {a - t0:7.1f}  {p:.4f}  {q:.4f} | {rec}")
+        print("[refscale] ADC: iteration, alive before, deleted, cloned, split, alive "
+              "after, cap_hit | JAX run's alive after")
+        for it, before, d, c, sp, after, hit in adc:
+            print(f"[refscale]   {it:5d}  {before:7d}  {d:6d}  {c:5d}  {sp:6d}  {after:7d}  "
+                  f"{hit} | {rec_alive.get(it, '-')}")
+        rec_peak = max(record["num_gaussians"])
+        print(f"[refscale] alive: {m.num_gaussians[0]} at the start, peak "
+              f"{max(m.num_gaussians)}, {n_alive} at the end (JAX run: "
+              f"{record['num_gaussians'][0]}, {rec_peak}, {record['adc_events'][-1]['alive']})")
+        max_psnr, final_psnr = max(m.test_psnr), m.test_psnr[-1]
+        print(f"[refscale] test PSNR max {max_psnr:.4f} (floor {REFSCALE_MIN_MAX_PSNR}; JAX "
+              f"run {max(record['test_psnr']):.4f}), at {n_iters} {final_psnr:.4f} (floor "
+              f"{REFSCALE_MIN_FINAL_PSNR}; JAX run {record['test_psnr'][-1]:.4f}) ({smi})")
+
+        # the checks: the record's schedule, the accounting, the floors
+        if [a[0] for a in adc] != list(rec_alive):
+            raise AssertionError(f"[refscale] ADC at {[a[0] for a in adc]}, the record's "
+                                 f"at {list(rec_alive)}")
+        if any(b - d + c + sp != a or hit for _, b, d, c, sp, a, hit in adc):
+            raise AssertionError(f"[refscale] an ADC event's accounting or cap_hit: {adc}")
+        if adc[-1][5] != n_alive:
+            raise AssertionError(f"[refscale] {n_alive} alive, the last event left {adc[-1][5]}")
+        if m.eval_iters != record["eval_iters"]:
+            raise AssertionError(f"[refscale] evals at {m.eval_iters}, the record's at "
+                                 f"{record['eval_iters']}")
+        if reset_iters != REFSCALE_RESETS:
+            raise AssertionError(f"[refscale] resets at {reset_iters}")
+        if not (max_psnr >= REFSCALE_MIN_MAX_PSNR and final_psnr >= REFSCALE_MIN_FINAL_PSNR):
+            raise AssertionError(f"[refscale] test PSNR under its floors: {m.test_psnr}")
+
+        final = os.path.join(out, "ckpt_final.npz")
+        state, it, _ = ckpt.load_checkpoint(final, cfg, device=DEVICE)
+        if it != n_iters or not (torch.equal(state.alive, runner.state.alive) and all(
+                torch.equal(state.params[k], v) for k, v in runner.state.params.items())):
+            raise AssertionError("[refscale] ckpt_final.npz does not hold the final state")
+        del state
+        os.remove(final)
+        ply = ckpt.import_ply(os.path.join(out, "scene_final.ply"), device="cpu")
+        if ply.num_alive() != n_alive:
+            raise AssertionError(f"[refscale] scene_final.ply has {ply.num_alive()} of "
+                                 f"{n_alive}")
+        del ply
+        if not os.path.isfile(os.path.join(out, "trace", "trace.json")):
+            raise AssertionError("[refscale] no torch.profiler trace")
+
+        # the bench sample against the committed one (the JAX run's)
+        with np.load(os.path.join(out, refscale_run.SAMPLE)) as z:
+            got = {k: z[k] for k in z.files}
+        with np.load(BENCH_SAMPLE) as z:
+            want = {k: z[k] for k in z.files}
+        qs = (0.01, 0.5, 0.99)
+
+        def quantiles(x):
+            return ", ".join(f"{v:.5f}" for v in np.quantile(x, qs))
+
+        print(f"[refscale] bench sample: {got['xyz'].shape[0]} of n_alive "
+              f"{int(got['n_alive'])} at iteration {int(got['iteration'])} (committed: "
+              f"{want['xyz'].shape[0]} of {int(want['n_alive'])}); quantiles {qs} of the "
+              f"log-scales {quantiles(got['scale'])} (committed {quantiles(want['scale'])}), "
+              f"of nn {quantiles(got['nn'])} (committed {quantiles(want['nn'])})")
+        layout = {k: (v.shape, v.dtype) for k, v in got.items()}
+        if layout != {k: (v.shape, v.dtype) for k, v in want.items()} or not all(
+                np.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"[refscale] bench sample {layout}")
+        if (int(got["n_alive"]), int(got["iteration"])) != (n_alive, n_iters):
+            raise AssertionError("[refscale] the bench sample is not of the final state")
+
         idx = int(runner.train_split[0])
         cam, pose = runner._camera(idx)
-        kw = dict(config=runner.config, camera_hw=(cam.height, cam.width),
-                  n_sh_band=trainer.sh_band_for_iteration(runner.config, CLI_ITERS))
+        kw = dict(config=cfg, camera_hw=(cam.height, cam.width),
+                  n_sh_band=trainer.sh_band_for_iteration(cfg, n_iters))
         gt = runner.gt_image_dev(idx)
-        bg = runner.background_for(CLI_ITERS - 1)
+        bg = runner.background_for(n_iters - 1)
         busy_ms = profile_step(lambda: trainer.train_step(runner.state, gt, cam.K, pose,
-                                                          bg, **kw), median_ms, "cli")
-        print(f"[cli] device busy {busy_ms:.3f} ms of the {median_ms:.3f} ms step: host "
-              f"share {1 - busy_ms / median_ms:.3f} ({smi})")
+                                                          bg, **kw), late_ms, "refscale")
+        print(f"[refscale] device busy {busy_ms:.3f} ms in a step at the final state, "
+              f"against the last {REFSCALE_LATE_STEPS} steps' median {late_ms:.3f} ms: host "
+              f"share {1 - busy_ms / late_ms:.3f} ({smi})")
         del runner, gt, bg, cam, pose
-        os.remove(os.path.join(out, "ckpt_final.npz"))
 
-        # resume from the periodic checkpoint
-        path = os.path.join(out, f"ckpt_iter_{CLI_CHECKPOINT}.npz")
+        # resume from the periodic checkpoint, across the next ADC event
+        path = os.path.join(out, f"ckpt_iter_{REFSCALE_CHECKPOINT}.npz")
         with np.load(path) as z:
             saved_alive = int(z["alive"].sum())
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
-        runner = train_torch.main(cli_argv(
-            out2, **dict(CLI_SCHEDULE, num_iters=CLI_RESUME_ITERS, profile_steps=0),
-            load_checkpoint=True, checkpoint_path=path))
+        runner = train_torch.main(refscale_run.train_argv(
+            out2, DEVICE, num_iters=REFSCALE_RESUME_ITERS, load_checkpoint=True,
+            checkpoint_path=path))
         resume_s = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         totals.update(launches)
         m = runner.metrics
-        check_cli_run(runner, out2, launches, CLI_CHECKPOINT, CLI_RESUME_ITERS, "cli-resume")
-        if m.num_gaussians[0] != saved_alive:
-            raise AssertionError(f"[cli-resume] started from {m.num_gaussians[0]} "
-                                 f"gaussians, the checkpoint holds {saved_alive}")
-        print(f"[cli-resume] resumed at iteration {runner.start_iter} from {saved_alive} "
-              f"gaussians, {len(m.train_psnr)} steps to {CLI_RESUME_ITERS}; test PSNR at "
+        check_cli_run(runner, out2, launches, REFSCALE_CHECKPOINT, REFSCALE_RESUME_ITERS,
+                      "refscale-resume")
+        want_adc = [i for i in range(REFSCALE_CHECKPOINT, REFSCALE_RESUME_ITERS)
+                    if scheduled_events(runner.config, i).adc]
+        print(f"[refscale-resume] resumed at iteration {runner.start_iter} from "
+              f"{saved_alive} gaussians, {len(m.train_psnr)} steps to "
+              f"{REFSCALE_RESUME_ITERS}; ADC (iteration, alive) "
+              f"{[(e['iter'], e['alive']) for e in m.adc_events]}; test PSNR at "
               f"{m.eval_iters}: {', '.join(f'{x:.4f}' for x in m.test_psnr)}; "
               f"{resume_s:.1f} s ({smi})")
+        if m.num_gaussians[0] != saved_alive:
+            raise AssertionError(f"[refscale-resume] started from {m.num_gaussians[0]} "
+                                 f"gaussians, the checkpoint holds {saved_alive}")
+        if [e["iter"] for e in m.adc_events] != want_adc or max(want_adc) <= runner.start_iter:
+            raise AssertionError(f"[refscale-resume] ADC events {m.adc_events}")
+        del runner
+        for f in (path, os.path.join(out2, f"ckpt_iter_{REFSCALE_CHECKPOINT}.npz"),
+                  os.path.join(out2, "ckpt_final.npz")):
+            os.remove(f)
     return dict(totals)
 
 
@@ -2517,9 +2618,10 @@ def main():
     with phase("probes"):
         probes, probe_launches = run_probes(smi)
 
-    # 11. the training CLI on the synthetic reference-scale scene
-    with phase("training CLI"):
-        cli_launches = cli_phase(smi)
+    # 11. the reference-scale run: the full 7k schedule of runs/refscale7k
+    # through train_torch.main on the synthetic reference-scale scene
+    with phase("refscale"):
+        refscale_launches = refscale_phase(smi)
 
     # 12. a COLMAP capture of garden's shape through train_torch.py (per-pixel
     # SH) and render_torch.py, with the port's own image decoders
@@ -2543,7 +2645,7 @@ def main():
               "gaussian_splatting_torch/csrc/render_fwd.cu",
               "gaussian_splatting_tpu/ops/render.py:525",
               launches["render_fwd"] + train_launches["render_fwd"]
-              + adc_launches["render_fwd"] + cli_launches["render_fwd"]
+              + adc_launches["render_fwd"] + refscale_launches["render_fwd"]
               + capture_launches["render_fwd"] + mgpu_launches["render_fwd"], img_err,
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
@@ -2557,7 +2659,7 @@ def main():
               "gaussian_splatting_torch/csrc/render_bwd.cu",
               "gaussian_splatting_tpu/ops/render.py:635",
               train_launches["render_bwd"] + adc_launches["render_bwd"]
-              + cli_launches["render_bwd"] + capture_launches["render_bwd"]
+              + refscale_launches["render_bwd"] + capture_launches["render_bwd"]
               + mgpu_launches["render_bwd"], b2_abs,
               max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",

@@ -3,15 +3,15 @@
 
 Same field names and defaults as the JAX config, so one config file serves
 both packages.  The JAX package's ``__init__`` imports jax, so this mirror
-is its own class; a test holds the two equal.  The fields under
-"TPU-specific" size the JAX package's static buffers, kernels and dispatch;
-the port has no capacities and reads none of them.
+is its own class; a test holds the two equal.  The fields of ``NOT_READ``
+size the JAX package's static buffers, TPU kernels and dispatch; the port
+has no capacities and reads none of them.
 
 ``to_yaml``/``from_yaml`` write and read the flat YAML of the JAX package's
 ``config.yaml`` (what ``yaml.safe_dump`` gives this dataclass: ints,
 floats, bools, strings, null and lists of ints) without PyYAML, which the
 port does not depend on.  ``preset`` and ``FIELD_HELP`` are the JAX
-package's, for the CLI.
+package's, for the CLI, apart from the help of the ``NOT_READ`` fields.
 """
 
 from __future__ import annotations
@@ -341,8 +341,15 @@ def _parse_flat_yaml(text: str) -> dict:
     return out
 
 
-# one-line help per field, rendered by the CLIs (train_torch.py, train.py);
-# the JAX package's text, so both CLIs document a flag alike
+# the JAX package's TPU capacity, kernel and dispatch fields, which the port
+# accepts (one config file serves both packages) and does not read
+NOT_READ = ("splat_capacity", "max_splat_capacity", "visible_capacity",
+            "tier_capacities", "chunk", "kernel_precision", "overflow_updates",
+            "steps_per_dispatch")
+
+# one-line help per field, rendered by train_torch.py: the JAX package's
+# text, so both CLIs document a flag alike, apart from the NOT_READ fields,
+# whose help says that the port does not read them
 FIELD_HELP = {
     "dataset_path": "COLMAP dataset directory (sparse/0 + images)",
     "downsample_factor": "image downsample factor (1, 2, 4, 8)",
@@ -405,18 +412,20 @@ FIELD_HELP = {
     "num_split_samples": "samples per split (fixed-capacity impl: 2)",
     "gaussian_capacity": "gaussian slot capacity; <=0 derives it from the "
     "initial point count (8x headroom, capped by max_gaussians)",
-    "splat_capacity": "flat per-frame splat-list capacity used to derive "
-    "default tier capacities",
-    "max_splat_capacity": "hard ceiling for automatic splat-capacity growth",
-    "visible_capacity": "visible-gaussian compaction capacity per frame "
-    "(0 = gaussian capacity; the runner right-sizes it)",
-    "tier_capacities": "per-tier member capacities, comma-separated (one "
-    "per culling.TIER_CELLS entry); empty derives from splat_capacity",
-    "chunk": "rasterizer chunk length (splats per grid step)",
-    "kernel_precision": "'f32' (exact) or 'bf16' (sort operands ride as "
-    "packed bf16 pairs; ~0.4%% gradient noise, ~25%% faster step)",
-    "overflow_updates": "apply updates even on tier-capacity-overflowing "
-    "frames (runner flips this on at the max_splat_capacity ceiling)",
+    "splat_capacity": "JAX package only (the TPU splat-list capacity); the "
+    "port has no capacities and does not read it",
+    "max_splat_capacity": "JAX package only (the ceiling of the TPU "
+    "splat-capacity growth); not read by the port",
+    "visible_capacity": "JAX package only (the TPU visible-gaussian "
+    "compaction capacity); not read by the port",
+    "tier_capacities": "JAX package only (the TPU per-tier member "
+    "capacities, comma-separated); not read by the port",
+    "chunk": "JAX package only (splats per TPU grid step); the port's "
+    "kernels walk a tile's splats in batches of their own and do not read it",
+    "kernel_precision": "JAX package only ('bf16' packs the TPU sort's "
+    "operands); the port sorts exact int64 keys and does not read it",
+    "overflow_updates": "JAX package only (updates on TPU capacity-overflow "
+    "frames); the port has no capacities and does not read it",
     "synthetic_points": "synthetic preset: secret-scene (gt) point count",
     "synthetic_images": "synthetic preset: number of ring views",
     "synthetic_init_points": "synthetic preset: train-init point count "
@@ -428,8 +437,8 @@ FIELD_HELP = {
     "reference semantics",
     "model_parallel": "gaussian-sharded devices (scene + image bands "
     "sharded over the mesh); 1 = single-device",
-    "steps_per_dispatch": "steps per device dispatch (lax.scan chunks "
-    "between schedule events); 1 = per-step dispatch",
+    "steps_per_dispatch": "JAX package only (lax.scan steps per TPU "
+    "dispatch); the port dispatches every step and does not read it",
     "profile_start": "first iteration of the device-trace window",
     "profile_steps": "device-trace window length (0 = no profiling)",
 }

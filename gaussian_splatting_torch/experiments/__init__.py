@@ -12,7 +12,13 @@ the yardstick:
 - ``dma_scatter_bench`` (E3): placing row blocks at data-dependent offsets,
   against ``Tensor.index_copy_``.
 
-Every module runs its JAX probe's sweep from its ``main()``:
+Beside them, the reference-scale run's two scripts, twins of the JAX
+package's ``experiments/refscale_run.sh`` and ``make_bench_scene.py``:
+``refscale_run`` trains the synthetic reference-scale scene through the
+full 7k schedule with ``train_torch.main``, and ``make_bench_scene`` cuts
+a bootstrap sample from a checkpoint.
+
+Every probe module runs its JAX probe's sweep from its ``main()``:
 
     python -m gaussian_splatting_torch.experiments.permute_probe [--device cuda]
 

@@ -37,6 +37,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +69,36 @@ def derive_capacity(n_points: int, config: SplatConfig) -> int:
         return config.gaussian_capacity
     cap = 1 << max(int(np.ceil(np.log2(max(n_points * 8, 1024)))), 10)
     return min(cap, 1 << int(np.ceil(np.log2(config.max_gaussians * 1.05))))
+
+
+class Events(NamedTuple):
+    """The schedule's events at one iteration, in the order ``train`` runs
+    them: the test-split eval before the step, then after it adaptive
+    density control, the opacity reset, the debug image and the periodic
+    checkpoint."""
+
+    eval: bool
+    adc: bool
+    reset: bool
+    debug_image: bool
+    checkpoint: bool
+
+
+def scheduled_events(config: SplatConfig, i: int) -> Events:
+    """Which events fire at iteration ``i`` of ``train``'s loop (the JAX
+    runner's conditions).  The eval at ``num_iters`` comes from the loop's
+    tail, not from here."""
+    c = config
+    return Events(
+        eval=i % c.test_eval_interval == 0,
+        adc=(c.adaptive_control_start < i < c.adaptive_control_end
+             and i % c.adaptive_control_interval == 0),
+        reset=(c.reset_opacity_start < i < c.reset_opacity_end
+               and i % c.reset_opacity_interval == 0),
+        debug_image=(c.save_debug_image_interval > 0 and i > 0
+                     and i % c.save_debug_image_interval == 0),
+        checkpoint=c.checkpoint_interval > 0 and i > 0 and i % c.checkpoint_interval == 0,
+    )
 
 
 def _sync(device: torch.device) -> None:
@@ -379,7 +410,8 @@ class TrainingRunner:
                 self._drain()
                 self._stop_profiler(profiler)
                 profiler = None
-            if i % cfg.test_eval_interval == 0:
+            events = scheduled_events(cfg, i)
+            if events.eval:
                 self._drain()
                 scores = self._record_eval(i)
                 if scores:
@@ -403,21 +435,18 @@ class TrainingRunner:
                 self._say(f"Iter: {li}, PSNR: {linfo['psnr']:.3f}, N: {linfo['n_alive']}, "
                           f"splats: {linfo['num_splats']}")
 
-            if (i > cfg.adaptive_control_start and i % cfg.adaptive_control_interval == 0
-                    and i < cfg.adaptive_control_end):
+            if events.adc:
                 self._drain()
                 self._densify(i)
 
-            if (i > cfg.reset_opacity_start and i < cfg.reset_opacity_end
-                    and i % cfg.reset_opacity_interval == 0):
+            if events.reset:
                 self._say("\t\tResetting opacity")
                 self.state = T.reset_opacity(self.state, config=cfg)
 
-            if cfg.save_debug_image_interval > 0 and i > 0 and (
-                    i % cfg.save_debug_image_interval == 0):
+            if events.debug_image:
                 self._save_debug_image(i)
 
-            if cfg.checkpoint_interval > 0 and i > 0 and i % cfg.checkpoint_interval == 0:
+            if events.checkpoint:
                 self._save_checkpoint(os.path.join(cfg.output_dir, f"ckpt_iter_{i}.npz"), i)
                 # the run's record rides along with every periodic checkpoint
                 self._write_metrics()
