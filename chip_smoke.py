@@ -36,8 +36,10 @@ counters, that each went through its kernels:
   (runs/refscale7k/metrics.json) with each event's accounting, the resets,
   finite parameters, the test PSNR against floors under the JAX run's, the
   run's files and the bench sample's layout against the committed
-  bench_scene_sample.npz; then a second call that resumes from the
-  checkpoint at 3500 across the ADC at 3600;
+  bench_scene_sample.npz, each event's deletes by reason adding up to its
+  count (delete_census: also the window's skipped steps and the deletes
+  of the window cut to its last 1, 5, 25 steps); then a second call that
+  resumes from the checkpoint at 3500 across the ADC at 3600;
 - a COLMAP capture ("[capture]"): the port's image decoders built with
   g++ and the committed JPEG fixtures held to OpenCV's decodes, then a
   capture of garden's shape (185 views at 1297x840 in images_4/ as PNG,
@@ -171,6 +173,9 @@ REFSCALE_RESETS = [3001, 6002]
 REFSCALE_LATE_STEPS = 500  # after the last ADC event (6400): the final scene
 REFSCALE_MIN_MAX_PSNR = 24.76
 REFSCALE_MIN_FINAL_PSNR = 23.25
+# each ADC event's deletes by reason, and those of a window that had counted
+# only its last k steps (delete_census), for these k
+REFSCALE_SHORT_WINDOWS = (1, 5, 25)
 BENCH_SAMPLE = os.path.join(ROOT, "bench_scene_sample.npz")
 
 # The H100 SXM's peaks (NVIDIA's data sheet, at its 700 W limit): device
@@ -1089,6 +1094,57 @@ def call_times(owner, name, times, sync, after=None):
         setattr(owner, name, fn)
 
 
+@contextlib.contextmanager
+def delete_census(trainer, adc_iters, rows, windows=REFSCALE_SHORT_WINDOWS):
+    """While the block runs, each trainer.adaptive_density_control call (at
+    the iterations ``adc_iters`` of a run that starts at 0) first appends
+    (iteration, [opacity, count0, uv0, then count0 and uv0 for each k of
+    ``windows``, then the Adam count]) to ``rows``: its deletes by reason
+    (trainer.delete_reasons), the count-0 and uv-norm-0 deletes it would
+    make had its window counted only its last k steps, and the steps taken
+    so far (a skipped step does not advance the count).  The last k steps
+    run with zeroed accumulators, their increments are kept apart and then
+    added back, so the run's accumulators are the ones it would have had.
+    One host read an event."""
+    import torch
+
+    step, adc = trainer.train_step, trainer.adaptive_density_control
+    events, longest = sorted(adc_iters), max(windows)
+    calls, partial = [0], {}
+
+    def train_step(state, *args, **kwargs):
+        i = calls[0]
+        calls[0] += 1
+        ahead = [e - i for e in events if e >= i]
+        if not ahead or ahead[0] >= longest:
+            return step(state, *args, **kwargs)
+        acc = ("uv_grad_accum", "xyz_grad_accum", "grad_accum_count")
+        out, info = step(state._replace(**{a: torch.zeros_like(getattr(state, a))
+                                           for a in acc}), *args, **kwargs)
+        for k in windows:
+            if ahead[0] < k:
+                c, u = partial.get(k, (0, 0))
+                partial[k] = (out.grad_accum_count + c, out.uv_grad_accum + u)
+        return out._replace(**{a: getattr(state, a) + getattr(out, a) for a in acc}), info
+
+    def density_control(state, generator, iteration, *, config):
+        counts = list(trainer.delete_reasons(state, config).values())
+        for k in windows:
+            c, u = partial.pop(k)
+            short = trainer.delete_reasons(
+                state._replace(grad_accum_count=c, uv_grad_accum=u), config)
+            counts += [short["count0"], short["uv0"]]
+        counts.append(state.opt_state.count)
+        rows.append((iteration, torch.stack([x.to(torch.int64) for x in counts]).tolist()))
+        return adc(state, generator, iteration, config=config)
+
+    trainer.train_step, trainer.adaptive_density_control = train_step, density_control
+    try:
+        yield
+    finally:
+        trainer.train_step, trainer.adaptive_density_control = step, adc
+
+
 def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
     """A train_torch run's checks: launches the schedule implies (B1 for
     each ground-truth view, step, eval view and debug image, B2 for each
@@ -1152,11 +1208,12 @@ def refscale_phase(smi):
         out, out2 = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
         print(f"[refscale] {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free for the "
               f"runs' files; {smi}")
-        steps, evals, events, resets = [], [], [], []
+        steps, evals, events, resets, census = [], [], [], [], []
         torch.cuda.reset_peak_memory_stats()
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
-        with call_times(trainer, "train_step", steps, sync=False), \
+        with delete_census(trainer, [e["iter"] for e in record["adc_events"]], census), \
+                call_times(trainer, "train_step", steps, sync=False), \
                 call_times(trainer, "reset_opacity", resets, sync=True), \
                 call_times(TrainingRunner, "evaluate", evals, sync=True), \
                 call_times(TrainingRunner, "_densify", events, sync=True):
@@ -1216,6 +1273,24 @@ def refscale_phase(smi):
         for it, before, d, c, sp, after, hit in adc:
             print(f"[refscale]   {it:5d}  {before:7d}  {d:6d}  {c:5d}  {sp:6d}  {after:7d}  "
                   f"{hit} | {rec_alive.get(it, '-')}")
+        rec_deleted = {e["iter"]: e["deleted"] for e in record["adc_events"]}
+        print("[refscale] deletes by reason (trainer.delete_reasons, from the state before "
+              "the event): iteration, steps in the window, skipped, deleted, opacity, count "
+              "0, uv norm 0 | had the window counted only its last k steps, count 0 + uv "
+              f"norm 0, for k = {', '.join(map(str, REFSCALE_SHORT_WINDOWS))} | JAX run's "
+              "deleted")
+        skipped, prev = [], (-1, 0)
+        for (it, _, d, *_), (_, row) in zip(adc, census):
+            # the window: the steps after the last event up to this one's
+            n_steps, taken = it - prev[0], row[-1] - prev[1]
+            skipped.append(n_steps - taken)
+            prev = (it, row[-1])
+            short = "  ".join(f"{row[3 + 2 * j]}+{row[4 + 2 * j]}"
+                              for j in range(len(REFSCALE_SHORT_WINDOWS)))
+            print(f"[refscale]   {it:5d}  {n_steps:4d}  {skipped[-1]:4d}  {d:6d}  {row[0]:6d}  "
+                  f"{row[1]:6d}  {row[2]:6d} | {short} | {rec_deleted.get(it, '-')}")
+        print(f"[refscale] steps skipped (a loss or gradient not finite) in the ADC windows: "
+              f"{sum(skipped)}")
         rec_peak = max(record["num_gaussians"])
         print(f"[refscale] alive: {m.num_gaussians[0]} at the start, peak "
               f"{max(m.num_gaussians)}, {n_alive} at the end (JAX run: "
@@ -1233,6 +1308,9 @@ def refscale_phase(smi):
             raise AssertionError(f"[refscale] an ADC event's accounting or cap_hit: {adc}")
         if adc[-1][5] != n_alive:
             raise AssertionError(f"[refscale] {n_alive} alive, the last event left {adc[-1][5]}")
+        if [(i, sum(row[:3])) for i, row in census] != [(a[0], a[2]) for a in adc]:
+            raise AssertionError(f"[refscale] the deletes by reason {census} do not add up "
+                                 f"to the events' {[(a[0], a[2]) for a in adc]}")
         if m.eval_iters != record["eval_iters"]:
             raise AssertionError(f"[refscale] evals at {m.eval_iters}, the record's at "
                                  f"{record['eval_iters']}")

@@ -328,6 +328,21 @@ def _copy_slots(params, written, from_slot, overrides):
     return out
 
 
+def _delete_masks(state: TrainState, config: SplatConfig):
+    """The alive slots the delete step frees, by the first of its reasons
+    that holds: (pre-sigmoid opacity not above
+    inverse_sigmoid(delete_opacity_threshold), not seen since the last
+    event, seen with a uv gradient of norm 0); the last two only when some
+    slot was seen, since a window whose every step was skipped carries no
+    signal."""
+    alive, count = state.alive, state.grad_accum_count
+    low = alive & ~(state.params["opacity"][:, 0]
+                    > inverse_sigmoid(config.delete_opacity_threshold))
+    seen = count > 0
+    rest = alive & ~low & seen.any()
+    return low, rest & ~seen, rest & seen & ~(_row_norm(state.uv_grad_accum) > 0.0)
+
+
 @torch.no_grad()
 def adaptive_density_control(state: TrainState, generator: torch.Generator,
                              iteration, *, config: SplatConfig):
@@ -372,13 +387,11 @@ def adaptive_density_control(state: TrainState, generator: torch.Generator,
     i32 = torch.int32
 
     # delete
-    keep = params["opacity"][:, 0] > inverse_sigmoid(config.delete_opacity_threshold)
-    had_signal = (count > 0).any()
-    keep = keep & (((count > 0) & (_row_norm(state.uv_grad_accum) > 0.0)) | ~had_signal)
-    freed = alive & ~keep
+    low, count0, uv0 = _delete_masks(state, config)
+    freed = low | count0 | uv0
     n_deleted = freed.sum(dtype=i32)
     if config.use_delete:
-        alive = alive & keep
+        alive = alive & ~freed
         adam = optim.mask_moments(adam, freed)
     skip_densify = alive.sum(dtype=i32) > config.max_gaussians
 
@@ -457,6 +470,16 @@ def adaptive_density_control(state: TrainState, generator: torch.Generator,
         split_deferred=split_deferred,
     )
     return new_state, stats
+
+
+@torch.no_grad()
+def delete_reasons(state: TrainState, config: SplatConfig) -> dict:
+    """How many slots ``adaptive_density_control`` deletes from ``state``
+    for each reason (``_delete_masks``): ``opacity``, ``count0`` (never
+    seen), ``uv0`` (seen, with a uv gradient of norm 0).  0-d int32 tensors
+    on the state's device, which add up to the event's n_deleted."""
+    masks = _delete_masks(state, config)
+    return {k: m.sum(dtype=torch.int32) for k, m in zip(("opacity", "count0", "uv0"), masks)}
 
 
 def sh_band_for_iteration(config: SplatConfig, iteration: int) -> int:
