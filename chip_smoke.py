@@ -23,7 +23,12 @@ counters, that each went through its kernels:
   steps (kernels B1, B2);
 - the TPU probes E1-E3 (gaussian_splatting_torch/experiments): each
   probe's full sweep, every point's kernel against its plain version,
-  with kernel, plain and library-call times and the bound;
+  with kernel, plain and library-call times and the bound; then
+  "[kernel-bench]": B1 and B2 alone at the JAX bench point (the twin of
+  experiments/kernel_bench.py, 1,970,487 splats at 1296x840), each held to
+  its plain version, timed and bounded, and one point of the twin of
+  experiments/sort_bench.py (2^22 elements, 1 and 12 operands, and the
+  layout's int64 key);
 - the reference-scale run ("[refscale]"): gaussian_splatting_torch/
   experiments/refscale_run.py, the JAX package's run of runs/refscale7k
   through train_torch.main at full width and depth: 1,200,000 secret
@@ -177,21 +182,6 @@ REFSCALE_MIN_FINAL_PSNR = 23.25
 # only its last k steps (delete_census), for these k
 REFSCALE_SHORT_WINDOWS = (1, 5, 25)
 BENCH_SAMPLE = os.path.join(ROOT, "bench_scene_sample.npz")
-
-# The H100 SXM's peaks (NVIDIA's data sheet, at its 700 W limit): device
-# memory and float32 outside the tensor cores.  A kernel's bound is the
-# larger of its bytes over the first and its operations over the second.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# float32 operations per splat-pixel pair, counted from csrc/*.cu: every pair
-# a pixel reaches before T < T_EPS evaluates alpha (offsets, the conic
-# quadratic, rdet, exp, opacity); a pair that composites (alpha >= 1/255)
-# adds the rest.  Per-pixel SH adds 2 * 3 * n_sh for the colour contraction
-# (B3, B4) and 2 * 3 * n_sh for the coefficient rows (B4).
-ALPHA_OPS = 15
-FWD_COMPOSITE_OPS = 10  # weight, 3 colour multiply-adds, T update
-BWD_COMPOSITE_OPS = 46  # clamp, weight, A, prefix, D, 1/(1-a), q, 9 rows, T
-DEPTH_OPS = 4  # B5: T update and the threshold test on every evaluated pair
 
 # the reference's 6-gaussian fixture (tests/fixtures.py), 640x480
 FX_XYZ = [[1.0, 2.0, -4.0], [4.0, 5.0, 6.0], [7.0, 8.0, -9.0],
@@ -513,31 +503,6 @@ def compare_bwd(label, name, kern, plain, args, row_names):
     return abs_err, max(rel), max(spread)
 
 
-def pair_counts(feat, lay, x_tiles, clamp=False):
-    """(evaluated, composited, per tile) splat-pixel pairs of a compositing
-    walk on these inputs: pairs a pixel reaches while T >= T_EPS, those of
-    them with alpha >= 1/255 (``clamp``: the backward's clamped alpha), and
-    the evaluated pairs of each tile, (n_tiles,)."""
-    import torch
-
-    from gaussian_splatting_torch.ops import render as tr
-
-    n_tiles = lay.tile_starts.numel() - 1
-    T = torch.ones(n_tiles, 256, device=feat.device)
-    tile_pairs = torch.zeros(n_tiles, dtype=torch.int64, device=feat.device)
-    evaluated = composited = 0
-    for tiles, gid, ok in tr._tile_chunks(lay.gaussian_idx, lay.tile_starts,
-                                          tr.PLAIN_CHUNK):
-        alpha = tr._alpha_chunk(feat, gid, tiles, x_tiles)
-        at, prod, active, _ = tr._composite_chunk(T[tiles], alpha, ok, clamp=clamp)
-        live = active & ok[:, None, :]
-        evaluated += int(live.sum())
-        composited += int((active & (at > 0)).sum())
-        tile_pairs.index_add_(0, tiles, live.sum(dim=(1, 2)))
-        T[tiles] = tr._t_after(prod, active)
-    return evaluated, composited, tile_pairs
-
-
 def tile_spread(label, lay, tile_pairs):
     """Print the spread of evaluated pairs over a view's tiles and the
     splats per tile: whether the longest tiles could end a launch that
@@ -644,18 +609,19 @@ def depth_tile_spread(label, dlay, tile_steps):
           f"splat counts {counts[top].astype(int).tolist()}")
 
 
-def bound(nbytes, ops):
-    """(least ms, "bytes" or "operations"): the larger of the bytes over the
-    card's memory rate and the float32 operations over its peak."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_bounds(s_dc, s_dep, s_grid, s_sh):
     """Each kernel's bound at the main path's shapes (garden view 0): each
     input read once, each output written once, and the operations these
     inputs need."""
+    from gaussian_splatting_torch.ops.render import dc_work, pair_counts
+    from gaussian_splatting_torch.timing import (
+        ALPHA_OPS,
+        BWD_COMPOSITE_OPS,
+        DEPTH_OPS,
+        FWD_COMPOSITE_OPS,
+        bound,
+    )
+
     feat, lay = s_dc
     dfeat, dlay = s_dep
     sfeat, basis, slay, x_tiles = s_sh
@@ -666,21 +632,21 @@ def kernel_bounds(s_dc, s_dep, s_grid, s_sh):
     def layout_bytes(la):
         return f32 * (la.num_splats + la.tile_starts.numel())
 
-    ev, co, tile_pairs = pair_counts(feat, lay, s_grid.x_tiles)
-    tile_spread("garden view 0", lay, tile_pairs)
-    ev_b, co_b, _ = pair_counts(feat, lay, s_grid.x_tiles, clamp=True)
-    sev, sco, _ = pair_counts(sfeat, slay, x_tiles)
-    sev_b, sco_b, _ = pair_counts(sfeat, slay, x_tiles, clamp=True)
+    dc = dc_work(feat, lay.gaussian_idx, lay.tile_starts, s_grid.x_tiles)
+    tile_spread("garden view 0", lay, dc["tile_pairs"])
+    ev, co, ev_b, co_b = (dc[k] for k in ("evaluated", "composited", "evaluated_bwd",
+                                          "composited_bwd"))
+    sev, sco, _ = pair_counts(sfeat, slay.gaussian_idx, slay.tile_starts, x_tiles)
+    sev_b, sco_b, _ = pair_counts(sfeat, slay.gaussian_idx, slay.tile_starts, x_tiles,
+                                   clamp=True)
     dev, depth_steps = depth_pairs(dfeat, dlay, s_grid.x_tiles, ALPHA_THRESHOLD)
     depth_tile_spread("garden view 0", dlay, depth_steps)
-    feat_b, sfeat_b = f32 * feat.numel(), f32 * sfeat.numel()
+    sfeat_b = f32 * sfeat.numel()
     raw_b = f32 * 4 * n_pix
     sh_ops = 2 * 3 * n_sh
     work = {
-        "render_fwd": (feat_b + layout_bytes(lay) + raw_b,
-                       ALPHA_OPS * ev + FWD_COMPOSITE_OPS * co),
-        "render_bwd": (2 * feat_b + layout_bytes(lay) + 2 * raw_b,
-                       ALPHA_OPS * ev_b + BWD_COMPOSITE_OPS * co_b),
+        "render_fwd": dc["render_fwd"],
+        "render_bwd": dc["render_bwd"],
         "render_sh_fwd": (sfeat_b + f32 * basis.numel() + layout_bytes(slay) + raw_b,
                           ALPHA_OPS * sev + (FWD_COMPOSITE_OPS + sh_ops) * sco),
         "render_sh_bwd": (2 * sfeat_b + f32 * basis.numel() + layout_bytes(slay)
@@ -2309,6 +2275,7 @@ def run_probes(smi):
         permute_probe,
         sort_line,
     )
+    from gaussian_splatting_torch.timing import bound
 
     modules = {"permute_probe": permute_probe, "scan_probe": cumsum_bench,
                "place_probe": dma_scatter_bench}
@@ -2344,6 +2311,33 @@ def run_probes(smi):
     for key, _, _, _, point in PROBES:
         chosen[key] = next(p for p in sweeps[key] if p["point"] == point)
     return chosen, launches
+
+
+def kernel_bench_block(smi):
+    """[kernel-bench]: B1 and B2 alone at the JAX package's bench point
+    (gaussian_splatting_torch/experiments/kernel_bench.py: 1,970,487 splats,
+    459 in each of 1296x840's 4,293 tiles), each held to its plain version,
+    with kernel and plain ms, bound and share; then one short point of the
+    sort ladder (experiments/sort_bench.py: 2^22 elements, 1 and 12
+    operands, and the layout's int64 key).  Its launches are comparisons,
+    not a main path: the counter is cleared before and after it.  Returns
+    the kernel_bench result."""
+    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch.experiments import kernel_bench, sort_bench
+
+    t0 = time.perf_counter()
+    _build.LAUNCHES.clear()
+    res = kernel_bench.run(DEVICE)
+    for line in kernel_bench.lines(res):
+        print(f"[kernel-bench] {line}; {smi}")
+    points, info = sort_bench.ladder(DEVICE, sizes=(1 << 22,), operands=(1, 12),
+                                     packing=(), batch_rows=())
+    for p in points:
+        print(f"[kernel-bench] sort {sort_bench.line(p)} ({info['clock']}; {smi})")
+    print(f"[kernel-bench] launches {dict(_build.LAUNCHES)} (comparisons and timing); "
+          f"{time.perf_counter() - t0:.1f} s")
+    _build.LAUNCHES.clear()
+    return res
 
 
 # device kernels named in the step profile, by a part of their symbol
@@ -2695,6 +2689,7 @@ def main():
     # 10. the TPU probes E1-E3, full sweeps
     with phase("probes"):
         probes, probe_launches = run_probes(smi)
+        bench_point = kernel_bench_block(smi)
 
     # 11. the reference-scale run: the full 7k schedule of runs/refscale7k
     # through train_torch.main on the synthetic reference-scale scene
@@ -2708,6 +2703,11 @@ def main():
 
     # 13. multi-GPU training: the ranks share the one card
     mgpu_launches = mgpu_phase(smi)
+
+    def at_bench(k):
+        b = bench_point[k]
+        return dict(splats=bench_point["splats"], ms=b["ms"], plain_ms=b["plain_ms"],
+                    bound_ms=b["bound_ms"], bound_by=b["bound_by"])
 
     def entry(key, name, source, replaces, launches, err, **extra):
         ms, plain_ms = times[key]
@@ -2725,6 +2725,7 @@ def main():
               launches["render_fwd"] + train_launches["render_fwd"]
               + adc_launches["render_fwd"] + refscale_launches["render_fwd"]
               + capture_launches["render_fwd"] + mgpu_launches["render_fwd"], img_err,
+              kernel_bench_point=at_bench("B1"),
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
         entry("depth_fwd", "depth_fwd (B5, depth)",
@@ -2739,7 +2740,8 @@ def main():
               train_launches["render_bwd"] + adc_launches["render_bwd"]
               + refscale_launches["render_bwd"] + capture_launches["render_bwd"]
               + mgpu_launches["render_bwd"], b2_abs,
-              max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread),
+              max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread,
+              kernel_bench_point=at_bench("B2")),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
               "gaussian_splatting_torch/csrc/render_sh_fwd.cu",
               "gaussian_splatting_tpu/ops/render_sh.py:93",

@@ -65,6 +65,14 @@ def frustum_visible_rows(u, v, z, grid_wh, near_thresh, far_thresh,
     return ~culled
 
 
+def frustum_visible(xyz_camera, uv, grid_wh, near_thresh, far_thresh,
+                    cull_mask_padding):
+    """(N, C)-array wrapper over ``frustum_visible_rows``: camera-frame xyz
+    (N, 3) and uv (N, 2) -> (N,) bool."""
+    return frustum_visible_rows(uv[:, 0], uv[:, 1], xyz_camera[:, 2], grid_wh,
+                                near_thresh, far_thresh, cull_mask_padding)
+
+
 def _obb_and_radius(u, v, a, b, c, mh_dist):
     """Ellipse OBB corners and tile search radius per gaussian.
 
@@ -169,6 +177,24 @@ def _depth_bits(z):
     return zf.view(torch.int32).to(torch.int64)
 
 
+def _sanitised(u, v, conic, z):
+    """(finite, u, v, a, b, c): the regularised 2D covariance entries
+    a = conic0 + 0.25, b = conic1 / 2, c = conic2 + 0.25, and each gaussian
+    with a non-finite u, v, z, a, b or c marked not finite and given
+    u = v = b = 0, a = c = 1, so the sort keys stay well ordered."""
+    a = conic[0] + 0.25
+    b = conic[1] * 0.5
+    c = conic[2] + 0.25
+    finite = torch.isfinite(u) & torch.isfinite(v) & torch.isfinite(z)
+    finite &= torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(c)
+    u = torch.where(finite, u, torch.zeros_like(u))
+    v = torch.where(finite, v, torch.zeros_like(v))
+    a = torch.where(finite, a, torch.ones_like(a))
+    b = torch.where(finite, b, torch.zeros_like(b))
+    c = torch.where(finite, c, torch.ones_like(c))
+    return finite, u, v, a, b, c
+
+
 def build_layout(u, v, conic, z, visible, grid: TileGrid, mh_dist: float,
                  opacity: Optional[torch.Tensor] = None) -> SplatLayout:
     """Assign gaussians to tiles and depth-sort each tile's list.
@@ -180,19 +206,8 @@ def build_layout(u, v, conic, z, visible, grid: TileGrid, mh_dist: float,
     reach ALPHA_SKIP.  Without it (golden splat lists) the window is the
     pure mh_dist ellipse.
     """
-    a = conic[0] + 0.25
-    b = conic[1] * 0.5
-    c = conic[2] + 0.25
-
-    # non-finite entries are invisible, so the sort keys stay well ordered
-    finite = torch.isfinite(u) & torch.isfinite(v) & torch.isfinite(z)
-    finite &= torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(c)
+    finite, u, v, a, b, c = _sanitised(u, v, conic, z)
     visible = visible & finite
-    u = torch.where(finite, u, torch.zeros_like(u))
-    v = torch.where(finite, v, torch.zeros_like(v))
-    a = torch.where(finite, a, torch.ones_like(a))
-    b = torch.where(finite, b, torch.zeros_like(b))
-    c = torch.where(finite, c, torch.ones_like(c))
 
     if opacity is not None:
         # cells whose whole tile lies beyond the iso-alpha ellipse
@@ -242,6 +257,76 @@ def build_layout(u, v, conic, z, visible, grid: TileGrid, mh_dist: float,
         num_visible=num_visible,
         truncated=truncated,
     )
+
+
+def _rows_of(uv, conic):
+    """u, v and the conic's three rows from (N, 2) / (N, 3) arrays or from
+    tuples of (N,) rows."""
+    u, v = uv if isinstance(uv, tuple) else uv.unbind(1)
+    return u, v, tuple(conic) if isinstance(conic, tuple) else tuple(conic.unbind(1))
+
+
+def build_splat_layout(uv, conic, z_camera, visible, grid: TileGrid,
+                       mh_dist: float) -> SplatLayout:
+    """The layout alone, for tests and tooling (the JAX package's
+    ``build_splat_layout``).  uv (N, 2) and conic (N, 3) [a, 2b, c] are
+    arrays or tuples of (N,) rows; the window is the pure mh_dist ellipse.
+
+    It takes none of the JAX function's ``splat_capacity``, ``chunk``,
+    ``visible_capacity``, ``tier_capacities`` or ``precision``: the port's
+    layout holds exactly the live splats, sorts one exact int64 key, and
+    has no capacity to overflow and no bfloat16 sort operands.
+    """
+    u, v, rows = _rows_of(uv, conic)
+    return build_layout(u, v, rows, z_camera, visible, grid, mh_dist)
+
+
+class _CarryColumns(torch.autograd.Function):
+    """carried[:, gid] in the forward; the cotangent of each splat column
+    summed onto its gaussian's column of ``feat_g`` in the backward."""
+
+    @staticmethod
+    def forward(ctx, feat_g, carried, gid):
+        ctx.save_for_backward(gid)
+        ctx.n = feat_g.shape[1]
+        return carried.index_select(1, gid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (gid,) = ctx.saved_tensors
+        out = grad.new_zeros(grad.shape[0], ctx.n)
+        return out.index_add_(1, gid, grad), None, None
+
+
+def layout_with_features(uv, conic, z_camera, visible, feat_g, grid: TileGrid,
+                         mh_dist: float):
+    """(layout, feat): the layout and the per-splat columns of the (R, N)
+    per-gaussian rows ``feat_g``, (R, num_splats), differentiable in
+    ``feat_g`` only (the JAX package's ``layout_with_features``).  uv and
+    conic as in ``build_splat_layout``, which says which of the JAX
+    function's arguments it does not take, and why.
+
+    As in the JAX function, a bundle of at least 6 rows is the rasterizer's
+    (u, v, opacity, a, b, c, ...): its rows 0, 1, 3, 4, 5 are replaced by
+    the layout's own sanitised u, v, a, b, c (the same values for finite
+    entries of a bundle that follows ``ops.render.splat_feature_rows``),
+    and row 2, the opacity, turns on the opacity-aware window.  A shorter
+    bundle is carried as it is and the window is the pure mh_dist ellipse.
+    The backward sums each splat's cotangent onto its gaussian, every row
+    onto ``feat_g`` (the JAX function inverts its two sort permutations
+    for this, ``culling._reduce_splat_grads``); uv, conic and z get none.
+    """
+    u, v, rows = _rows_of(uv, conic)
+    carried, opacity = feat_g.detach(), None
+    if feat_g.shape[0] >= 6:
+        _, su, sv, a, b, c = _sanitised(u, v, rows, z_camera)
+        carried = torch.cat([torch.stack([su, sv, carried[2], a, b, c]).detach(),
+                             carried[6:]])
+        opacity = carried[2]
+    layout = build_layout(u.detach(), v.detach(), tuple(r.detach() for r in rows),
+                          z_camera.detach(), visible, grid, mh_dist, opacity=opacity)
+    gid = layout.gaussian_idx.long()
+    return layout, _CarryColumns.apply(feat_g, carried, gid)
 
 
 def sorted_splat_list(layout: SplatLayout):

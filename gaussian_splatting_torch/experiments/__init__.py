@@ -16,7 +16,12 @@ Beside them, the reference-scale run's two scripts, twins of the JAX
 package's ``experiments/refscale_run.sh`` and ``make_bench_scene.py``:
 ``refscale_run`` trains the synthetic reference-scale scene through the
 full 7k schedule with ``train_torch.main``, and ``make_bench_scene`` cuts
-a bootstrap sample from a checkpoint.
+a bootstrap sample from a checkpoint.  And the twins of
+``experiments/kernel_bench.py`` and ``sort_bench.py``: ``kernel_bench``
+holds B1 and B2 to their plain versions and times them at the JAX
+package's bench point (1,970,487 splats), ``sort_bench`` times
+``torch.sort`` by operand count, int64 rows, batched rows and the
+layout's int64 key.
 
 Every probe module runs its JAX probe's sweep from its ``main()``:
 

@@ -1,10 +1,16 @@
 """Per-gaussian projective geometry on tensors (counterpart of
-``gaussian_splatting_tpu/geometry.py``, its "rows" API).
+``gaussian_splatting_tpu/geometry.py``).
 
-Each function works component-wise on (N,) rows, like the JAX rows chain,
-so the two packages evaluate the same float operations in the same order.
-Every division is guarded: masked-out entries (z ~ 0, dead slots) give
-zero, not NaN, in value and in gradient.
+The rows chain (``transform_rows`` ... ``conic_rows``) works component-wise
+on (N,) rows, like the JAX rows chain, so the two packages evaluate the
+same float operations in the same order; the rasterizer and the trainer
+use it.  Beside it stands the per-gaussian (N, C) API of the JAX package
+(``transform_points``, ``project_points``, ``compute_sigma_world``,
+``compute_projection_jacobian``, ``compute_conic``), the counterparts of
+the original CUDA code's autograd functions; no caller in the package uses
+it.  Its small matrix products are multiply-and-sum, not matmuls, so no
+TF32 setting reaches them.  Every division is guarded: masked-out entries
+(z ~ 0, dead slots) give zero, not NaN, in value and in gradient.
 """
 
 from __future__ import annotations
@@ -39,6 +45,64 @@ def _safe_div(num, den, ok):
     """num/den with zero (value and grad) where ``ok`` is False."""
     den_safe = torch.where(ok, den, torch.ones_like(den))
     return torch.where(ok, num / den_safe, torch.zeros_like(num))
+
+
+def transform_points(xyz, camera_T_world):
+    """World -> camera-frame points, (N, 3), (4, 4) -> (N, 3)."""
+    R = camera_T_world[:3, :3]
+    return (xyz[:, None, :] * R[None]).sum(2) + camera_T_world[:3, 3]
+
+
+def project_points(xyz_camera, K):
+    """Pinhole projection (N, 3) -> (N, 2): u = fx*x/z + cx, v = fy*y/z + cy,
+    with z == 0 guarded (|z| <= 1e-12 gives the principal point)."""
+    return torch.stack(project_rows(*xyz_camera.unbind(1), K), dim=1)
+
+
+def compute_sigma_world(quaternion, scale):
+    """World-space covariance R S S^T R^T, (N, 4), (N, 3) -> (N, 3, 3).
+
+    The quaternion is normalised and the log-scale exponentiated here.  The
+    square root is guarded inside, not only the division: sqrt'(0) is
+    infinite, and a zero cotangent times it would put NaN into a zero
+    (dead-slot) quaternion's gradient; that slot takes the identity.
+    """
+    sumsq = (quaternion * quaternion).sum(dim=1, keepdim=True)
+    ok = sumsq > 1e-24
+    norm = torch.sqrt(torch.where(ok, sumsq, torch.ones_like(sumsq)))
+    q = _safe_div(quaternion, norm, ok)
+    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    q = torch.where(ok, q, identity)
+    R = quaternion_to_rotation(q)
+    s_sq = torch.exp(2.0 * scale)
+    # Sigma[n, i, j] = sum_k R[n, i, k] s_sq[n, k] R[n, j, k]
+    return ((R * s_sq[:, None, :])[:, :, None, :] * R[:, None, :, :]).sum(3)
+
+
+def compute_projection_jacobian(xyz_camera, K):
+    """Jacobian of the pinhole projection in camera-frame xyz, (N, 3) ->
+    (N, 2, 3): [[fx/z, 0, -fx*x/z^2], [0, fy/z, -fy*y/z^2]]."""
+    x, y, z = xyz_camera.unbind(1)
+    ok = z.abs() > 1e-12
+    inv_z = _safe_div(torch.ones_like(z), z, ok)
+    fx, fy = K[0, 0], K[1, 1]
+    zero = torch.zeros_like(z)
+    row0 = torch.stack([fx * inv_z, zero, -fx * x * inv_z * inv_z], dim=1)
+    row1 = torch.stack([zero, fy * inv_z, -fy * y * inv_z * inv_z], dim=1)
+    return torch.stack([row0, row1], dim=1)
+
+
+def compute_conic(sigma_world, J, camera_T_world):
+    """The 2D covariance (J W) Sigma (J W)^T as the conic vector [a, 2b, c],
+    (N, 3, 3), (N, 2, 3), (4, 4) -> (N, 3), W the pose's rotation block.  Both
+    off-diagonals are summed into the middle entry.  No gradient reaches the
+    camera pose."""
+    W = camera_T_world[:3, :3].detach()
+    JW = (J[:, :, :, None] * W[None, None]).sum(2)  # (N, 2, 3)
+    t = (JW[:, :, :, None] * sigma_world[:, None]).sum(2)  # JW Sigma, (N, 2, 3)
+    sig = (t[:, :, None, :] * JW[:, None, :, :]).sum(3)  # (N, 2, 2)
+    return torch.stack([sig[:, 0, 0], sig[:, 0, 1] + sig[:, 1, 0], sig[:, 1, 1]],
+                       dim=1)
 
 
 def transform_rows(x, y, z, camera_T_world):

@@ -42,6 +42,15 @@ def depth_feature_rows(u, v, opacity_v, c0, c1, c2, dist):
     return torch.stack([u, v, opacity_v, c0 + 0.25, c1 * 0.5, c2 + 0.25, dist])
 
 
+def depth_features(uv, opacity, conic, xyz_camera):
+    """(N, C)-array wrapper over ``depth_feature_rows``: uv (N, 2), opacity
+    (N, 1), conic (N, 3), camera-frame xyz (N, 3) -> (7, N), the depth row
+    |xyz_camera|."""
+    return depth_feature_rows(uv[:, 0], uv[:, 1], opacity[:, 0], conic[:, 0],
+                              conic[:, 1], conic[:, 2],
+                              torch.linalg.norm(xyz_camera, dim=1))
+
+
 def depth_fwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int,
                     alpha_threshold: float, chunk: int = PLAIN_CHUNK):
     """Plain PyTorch version of kernel B5, same inputs and output.

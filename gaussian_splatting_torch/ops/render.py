@@ -37,6 +37,15 @@ def splat_feature_rows(u, v, opacity_v, c0, c1, c2, r, g, b):
     return torch.stack([u, v, opacity_v, c0 + 0.25, c1 * 0.5, c2 + 0.25, r, g, b])
 
 
+def splat_features(uv, opacity, conic, rgb):
+    """(N, C)-array wrapper over ``splat_feature_rows``: uv (N, 2), opacity
+    (N, 1), conic (N, 3), rgb (N, 3) -> (9, N).  Not the rasterizer's
+    ``rasterize.splat_features``, which forms the rows from the params."""
+    return splat_feature_rows(uv[:, 0], uv[:, 1], opacity[:, 0], conic[:, 0],
+                              conic[:, 1], conic[:, 2], rgb[:, 0], rgb[:, 1],
+                              rgb[:, 2])
+
+
 def _pixel_local_coords(dtype, device):
     """(256,) tile-local pixel coordinates centred on the tile (+-7.5)."""
     p = torch.arange(cc.PIXELS_PER_TILE, device=device)
@@ -241,6 +250,52 @@ def render_bwd_plain(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
     """
     return bwd_walk(feat, gaussian_idx, tile_starts, x_tiles, raw, grad_raw,
                     _dc_colour(feat), _dc_colour_grads, chunk)
+
+
+def pair_counts(feat, gaussian_idx, tile_starts, x_tiles: int, clamp=False):
+    """(evaluated, composited, per tile) splat-pixel pairs of a compositing
+    walk on these inputs, counted with the plain walk: pairs a pixel reaches
+    while T >= T_EPS, those of them with alpha >= 1/255 (``clamp``: the
+    backward's clamped alpha), and the evaluated pairs of each tile,
+    (n_tiles,).  What a kernel's bound counts (``timing.bound``)."""
+    n_tiles = tile_starts.numel() - 1
+    T = torch.ones(n_tiles, cc.PIXELS_PER_TILE, dtype=feat.dtype, device=feat.device)
+    tile_pairs = torch.zeros(n_tiles, dtype=torch.int64, device=feat.device)
+    evaluated = composited = 0
+    for tiles, gid, ok in _tile_chunks(gaussian_idx, tile_starts, PLAIN_CHUNK):
+        alpha = _alpha_chunk(feat, gid, tiles, x_tiles)
+        at, prod, active, _ = _composite_chunk(T[tiles], alpha, ok, clamp=clamp)
+        live = active & ok[:, None, :]
+        evaluated += int(live.sum())
+        composited += int((active & (at > 0)).sum())
+        tile_pairs.index_add_(0, tiles, live.sum(dim=(1, 2)))
+        T[tiles] = _t_after(prod, active)
+    return evaluated, composited, tile_pairs
+
+
+def dc_work(feat, gaussian_idx, tile_starts, x_tiles: int) -> dict:
+    """What B1 and B2 must do on these inputs, for their bounds
+    (``timing.bound``): each input read once and each output written once,
+    and the float32 operations of the pairs the walk reaches
+    (``pair_counts``; the backward's with its clamped alpha).  Returns
+    {"render_fwd": (bytes, ops), "render_bwd": (bytes, ops)} with the pair
+    counts ("evaluated", "composited", "evaluated_bwd", "composited_bwd")
+    and the forward's evaluated pairs of each tile ("tile_pairs")."""
+    from gaussian_splatting_torch import timing
+
+    ev, co, tile_pairs = pair_counts(feat, gaussian_idx, tile_starts, x_tiles)
+    ev_b, co_b, _ = pair_counts(feat, gaussian_idx, tile_starts, x_tiles, clamp=True)
+    feat_b = 4 * feat.numel()
+    layout_b = 4 * (gaussian_idx.numel() + tile_starts.numel())
+    raw_b = 4 * 4 * (tile_starts.numel() - 1) * cc.PIXELS_PER_TILE
+    return {
+        "render_fwd": (feat_b + layout_b + raw_b,
+                       timing.ALPHA_OPS * ev + timing.FWD_COMPOSITE_OPS * co),
+        "render_bwd": (2 * feat_b + layout_b + 2 * raw_b,
+                       timing.ALPHA_OPS * ev_b + timing.BWD_COMPOSITE_OPS * co_b),
+        "evaluated": ev, "composited": co, "evaluated_bwd": ev_b,
+        "composited_bwd": co_b, "tile_pairs": tile_pairs,
+    }
 
 
 def _check_layout_args(name, feat, rows, gaussian_idx, tile_starts):

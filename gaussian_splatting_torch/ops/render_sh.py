@@ -59,6 +59,13 @@ def sh_splat_feature_rows(u, v, opacity_v, conic3, coeffs):
     return torch.cat([base, coeffs.permute(1, 2, 0).reshape(3 * n_sh, -1)])
 
 
+def sh_splat_features(uv, opacity, conic, coeffs):
+    """(N, C)-array wrapper over ``sh_splat_feature_rows``: uv (N, 2),
+    opacity (N, 1), conic (N, 3), coeffs (N, 3, n_sh) -> (6 + 3*n_sh, N)."""
+    return sh_splat_feature_rows(uv[:, 0], uv[:, 1], opacity[:, 0],
+                                 (conic[:, 0], conic[:, 1], conic[:, 2]), coeffs)
+
+
 def build_pixel_basis(camera_K, camera_T_world, n_sh: int, grid):
     """SH basis at every pixel of the padded tile grid, (n_sh, n_tiles*256)
     in tile-major pixel order (``image_to_tiles``).  The view direction is

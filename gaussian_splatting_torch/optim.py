@@ -67,6 +67,21 @@ def update(grads: dict, state: AdamState, config):
     return updates, AdamState(count=count, mu=mu, nu=nu)
 
 
+def adam_moments(state: AdamState):
+    """(mu, nu): the first and second moments by leaf name.  The JAX
+    package's accessor digs them out of its optax chain's state; here they
+    are fields of ``AdamState``."""
+    return state.mu, state.nu
+
+
+def replace_adam_moments(state: AdamState, mu: Optional[dict] = None,
+                         nu: Optional[dict] = None) -> AdamState:
+    """``state`` with the moments given replaced (None keeps them); the
+    count is kept."""
+    return state._replace(mu=state.mu if mu is None else mu,
+                          nu=state.nu if nu is None else nu)
+
+
 def mask_moments(state: AdamState, slot_mask: torch.Tensor,
                  leaves: Optional[tuple] = None) -> AdamState:
     """Zero first and second moments at slots where ``slot_mask`` (C,) is

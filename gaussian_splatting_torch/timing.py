@@ -1,4 +1,5 @@
-"""The port's device timer, shared by ``chip_smoke.py`` and the probes.
+"""The port's device timer and kernel bound, shared by ``chip_smoke.py``
+and the experiments.
 
 On a CUDA device a call is timed alone, with a cold L2: each repetition
 first reads a buffer larger than the H100's 50 MB L2 (evicting the previous
@@ -16,6 +17,21 @@ from __future__ import annotations
 import time
 
 import torch
+
+# The H100 SXM's peaks (NVIDIA's data sheet, at its 700 W limit): device
+# memory and float32 outside the tensor cores.  A kernel's bound is the
+# larger of its bytes over the first and its operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# float32 operations per splat-pixel pair, counted from csrc/*.cu: every pair
+# a pixel reaches before T < T_EPS evaluates alpha (offsets, the conic
+# quadratic, rdet, exp, opacity); a pair that composites (alpha >= 1/255)
+# adds the rest.  Per-pixel SH adds 2 * 3 * n_sh for the colour contraction
+# (B3, B4) and 2 * 3 * n_sh for the coefficient rows (B4).
+ALPHA_OPS = 15
+FWD_COMPOSITE_OPS = 10  # weight, 3 colour multiply-adds, T update
+BWD_COMPOSITE_OPS = 46  # clamp, weight, A, prefix, D, 1/(1-a), q, 9 rows, T
+DEPTH_OPS = 4  # B5: T update and the threshold test on every evaluated pair
 
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
@@ -50,6 +66,14 @@ class Timer:
             end.record()
         torch.cuda.synchronize(self.device)
         return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def bound(nbytes, ops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the float32 operations over its peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(timer, kernel, plain, library=None):

@@ -2,6 +2,8 @@
 layout: the reference golden splat list on the fixture, per-tile lists on a
 seeded scene, visible counts and window truncation."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -143,3 +145,140 @@ def test_window_truncation_matches_jax():
     tx, ty = tiles_of_0 % grid.x_tiles, tiles_of_0 // grid.x_tiles
     assert len(tiles_of_0) == 4096
     assert tx.max() == 63 and set(ty[tx == 63]) == {0}
+
+
+def test_frustum_visible_matches_jax():
+    """The (N, C) wrapper's mask equals JAX's exactly, points on every
+    bound included, with and without a far cull."""
+    rng = np.random.default_rng(31)
+    n = 200
+    xyz = np.stack([rng.uniform(-5, 5, n), rng.uniform(-5, 5, n),
+                    rng.uniform(-1, 120, n)], axis=1).astype(np.float32)
+    uv = np.stack([rng.uniform(-30, 170, n), rng.uniform(-30, 130, n)],
+                  axis=1).astype(np.float32)
+    xyz[:8, 2] = [0.3, 100.0, 0.2999, 100.001, 5.0, 5.0, 5.0, 5.0]
+    uv[:4] = [60.0, 50.0]
+    uv[4:8] = [[-10.0, 50.0], [138.0, 50.0], [60.0, -10.0], [60.0, 106.0]]
+    for far in (100.0, np.inf):
+        args = ((128, 96), 0.3, far, 10.0)
+        got = tcu.frustum_visible(torch.tensor(xyz), torch.tensor(uv), *args).numpy()
+        want = np.asarray(jcu.frustum_visible(jnp.asarray(xyz), jnp.asarray(uv), *args))
+        np.testing.assert_array_equal(got, want)
+        assert got[:8].tolist() == [True, True, False, far == np.inf] + [True] * 4
+
+
+def _layout_args(u, v, conic, z, visible, form, lib):
+    """(uv, conic, z, visible) in one of the two argument forms: (N, C)
+    arrays, or tuples of (N,) rows."""
+    t = torch.tensor if lib == "torch" else jnp.asarray
+    if form == "rows":
+        return (t(u), t(v)), tuple(t(c) for c in conic), t(z), t(visible)
+    return (t(np.stack([u, v], 1)), t(np.stack(conic, 1)), t(z), t(visible))
+
+
+@pytest.mark.parametrize("form", ["arrays", "rows"])
+def test_build_splat_layout_matches_jax(form):
+    """The layout alone: per-tile depth-sorted lists equal JAX's
+    ``build_splat_layout``, exactly, in both argument forms."""
+    grid = TileGrid(96, 128)
+    u, v, conic, z, visible, _ = _seeded_rows(300, 128, 96, seed=7)
+    jgrid = JGrid(grid.image_height, grid.image_width)
+    layout = tcu.build_splat_layout(*_layout_args(u, v, conic, z, visible, form, "torch"),
+                                    grid, 3.0)
+    # the JAX side in the rows form: the port's form is what is under test
+    jlayout = _jax_layout(*_layout_args(u, v, conic, z, visible, "rows", "jax"),
+                          jgrid, 3.0, CAP, 256)
+    assert not bool(jlayout.overflow)
+    gid, starts = tcu.sorted_splat_list(layout)
+    jgid, jstarts = jcu.sorted_splat_list(jlayout, jgrid)
+    np.testing.assert_array_equal(starts, jstarts)
+    np.testing.assert_array_equal(gid, jgid)
+    assert layout.num_visible == int(jlayout.num_visible)
+    # the same lists as build_layout on the rows
+    np.testing.assert_array_equal(gid, _torch_lists(u, v, conic, z, visible, grid)[0])
+
+
+@functools.partial(jax.jit, static_argnums=(6,))
+def _jax_feat_vjp(uv, conic, z, visible, feat_g, cot, jgrid):
+    """JAX's layout, per-splat features and their VJP onto feat_g for the
+    per-splat cotangent ``cot`` (R, S), zero on JAX's padding past S, in one
+    jit (its custom VJP keeps shape templates as residuals, which cannot
+    leave a jit)."""
+    def feat_of(f):
+        layout, feat = jcu.layout_with_features(uv, conic, z, visible, f, jgrid, 3.0,
+                                                CAP, 256)
+        return feat, layout
+
+    feat, vjp, layout = jax.vjp(feat_of, feat_g, has_aux=True)
+    cot = jnp.pad(cot, ((0, 0), (0, feat.shape[1] - cot.shape[1])))
+    return layout, feat, vjp(cot)[0]
+
+
+# VJP onto feat_g: the port sums each gaussian's splat cotangents in splat
+# order (index_add_), JAX by its two inverted sorts and dense tier sums
+# (measured at most 1.7e-7 apart); held to 1e-6 of each row's largest
+# gradient
+LWF_GRAD_REL = 1e-6
+
+
+@pytest.mark.parametrize("rows", [3, 9])
+@pytest.mark.parametrize("form", ["arrays", "rows"])
+def test_layout_with_features_matches_jax(form, rows):
+    """A 9-row bundle, the rasterizer's (rows 0, 1, 3-5 from the layout's
+    own geometry, row 2's opacity shrinking the window): the layout and the
+    per-splat feature columns equal JAX's ``layout_with_features`` at
+    precision="f32", tile by tile, exactly, and the VJP onto feat_g for a
+    seeded per-splat cotangent matches JAX's permutation inversion within
+    ``LWF_GRAD_REL``.  A 3-row bundle, carried as it is: the lists equal
+    JAX's ``build_splat_layout``'s (a JAX compile of its own for each
+    bundle costs ~8 s), the columns feat_g[:, gid] and the VJP the exact
+    sum of each gaussian's splat cotangents, to which the 9-row case holds
+    JAX's inversion too."""
+    grid = TileGrid(96, 128)
+    u, v, conic, z, visible, opacity = _seeded_rows(300, 128, 96, seed=7)
+    rng = np.random.default_rng(rows)
+    feat_g = rng.normal(size=(rows, len(u))).astype(np.float32)
+    if rows >= 6:
+        feat_g[2] = opacity
+    jgrid = JGrid(grid.image_height, grid.image_width)
+
+    tfeat_g = torch.tensor(feat_g, requires_grad=True)
+    layout, feat = tcu.layout_with_features(
+        *_layout_args(u, v, conic, z, visible, form, "torch"), tfeat_g, grid, 3.0)
+    s = layout.num_splats
+    cot = rng.normal(size=(rows, s)).astype(np.float32)
+    jargs = _layout_args(u, v, conic, z, visible, "rows", "jax")
+    if rows >= 6:
+        jlayout, jfeat, jgrad = _jax_feat_vjp(*jargs, jnp.asarray(feat_g),
+                                              jnp.asarray(cot), jgrid)
+        jfeat, jgrad = np.asarray(jfeat), np.asarray(jgrad)
+    else:
+        jlayout = _jax_layout(*jargs, jgrid, 3.0, CAP, 256)
+    assert not bool(jlayout.overflow)
+    gid, starts = tcu.sorted_splat_list(layout)
+    jgid, jstarts = jcu.sorted_splat_list(jlayout, jgrid)
+    np.testing.assert_array_equal(starts, jstarts)
+    np.testing.assert_array_equal(gid, jgid)
+    assert feat.shape == (rows, s)
+    # the sum of each gaussian's splat cotangents
+    want = np.zeros_like(feat_g)
+    np.add.at(want, (slice(None), gid), cot.astype(np.float64))
+    if rows >= 6:
+        for t in np.flatnonzero(np.diff(starts)):
+            lo, hi = starts[t], starts[t + 1]
+            np.testing.assert_array_equal(feat[:, lo:hi].detach().numpy(),
+                                          jfeat[:, lo:hi])
+        # the rasterizer's bundle: the opacity cut is on, u, v come from the layout
+        assert s < _torch_lists(u, v, conic, z, visible, grid)[2].num_splats
+        np.testing.assert_array_equal(feat[0].detach().numpy(), u[gid])
+        np.testing.assert_allclose(jgrad, want, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(feat.detach().numpy(), feat_g[:, gid])
+        jgrad = want
+
+    (grad,) = torch.autograd.grad(feat, tfeat_g, torch.from_numpy(cot))
+    scale = np.abs(jgrad).max(axis=1, keepdims=True)
+    err = np.abs(grad.numpy() - jgrad) / scale
+    assert err.max() <= LWF_GRAD_REL, err.max(axis=1)
+    never = np.setdiff1d(np.arange(len(u)), gid)
+    assert (grad.numpy()[:, never] == 0).all() and (jgrad[:, never] == 0).all()

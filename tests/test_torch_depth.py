@@ -79,3 +79,28 @@ def test_depth_goldens_and_misses():
     np.testing.assert_allclose(d[200, 348, 0], 13.205718040466309, atol=1e-4)
     assert d[0, 0, 0] == -1.0 and d[470, 10, 0] == -1.0
     assert (d[d != -1.0] > 0).all()
+
+
+# jnp.linalg.norm against torch.linalg.norm: each may square, sum and take
+# the root in its own order; held to 2 float32 ulps of the JAX value
+DEPTH_ROW_ULPS = 2
+
+
+def test_depth_features_wrapper_matches_jax():
+    """``ops.depth.depth_features``, the (N, C) wrapper: rows 0-5 equal JAX's
+    bitwise, the depth row |xyz_camera| within ``DEPTH_ROW_ULPS``."""
+    rng = np.random.default_rng(23)
+    n = 64
+    a = dict(uv=rng.uniform(-20, 700, (n, 2)), opacity=rng.uniform(0, 1, (n, 1)),
+             conic=rng.uniform(-5, 50, (n, 3)),
+             xyz=np.concatenate([rng.uniform(-5, 5, (n, 2)),
+                                 rng.uniform(0.2, 90, (n, 1))], axis=1))
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    names = ("uv", "opacity", "conic", "xyz")
+    got = tdepth.depth_features(*(torch.from_numpy(a[k]) for k in names)).numpy()
+    want = np.asarray(jdepth.depth_features(*(jnp.asarray(a[k]) for k in names)))
+    assert got.shape == want.shape == (tdepth.N_DEPTH_FEAT, n)
+    np.testing.assert_array_equal(got[:tdepth.FEAT_DEPTH], want[:tdepth.FEAT_DEPTH])
+    d, dw = got[tdepth.FEAT_DEPTH], want[tdepth.FEAT_DEPTH]
+    ulps = np.abs(d - dw) / np.spacing(dw)
+    assert ulps.max() <= DEPTH_ROW_ULPS, ulps.max()

@@ -2,6 +2,7 @@
 500-gaussian scene, at float32 and float64."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -90,3 +91,95 @@ def test_sh_matches_jax(dtype, n_sh):
                                     jnp.asarray(centre)),
         dtype, "precompute_rgb_from_sh",
     )
+
+
+# the per-gaussian (N, C) API: the 6-gaussian fixture plus seeded gaussians,
+# one with a zero (dead-slot) quaternion; float32, both packages
+# (N, C) functions against each other, values and VJPs for a seeded
+# cotangent.  The small products sum in another order (XLA's einsum against
+# the port's multiply-and-sum; measured at most 2.2e-7), so each array is held to
+# 1e-6 of its largest magnitude
+NC_REL = 1e-6
+
+
+def _nc_inputs():
+    from tests import fixtures as fx
+
+    rng = np.random.default_rng(13)
+    n_extra = 10
+    xyz = np.concatenate([fx.test_xyz(), np.concatenate(
+        [rng.uniform(-3, 3, (n_extra, 2)), rng.uniform(2, 12, (n_extra, 1))],
+        axis=1)]).astype(np.float32)
+    quat = np.concatenate([fx.test_quaternion(),
+                           rng.normal(size=(n_extra, 4))]).astype(np.float32)
+    quat[7] = 0.0  # a dead slot
+    scale = np.concatenate([fx.test_scale(),
+                            rng.uniform(-4.0, -0.5, (n_extra, 3))]).astype(np.float32)
+    K = np.array(fx.test_camera().K, np.float32)
+    pose = np.array(fx.test_camera_T_world(), np.float32)
+    return dict(xyz=xyz, quat=quat, scale=scale, K=K, pose=pose), rng
+
+
+def _nc_close(t, j, name):
+    j = np.asarray(j)
+    t = np.zeros_like(j) if t is None else t.detach().numpy()
+    assert np.isfinite(t).all(), name
+    scale = max(float(np.abs(j).max()), 1e-30)
+    np.testing.assert_allclose(t, j, rtol=0, atol=NC_REL * scale, err_msg=name)
+
+
+def _nc_vjp(name, jfn, tfn, args, rng):
+    """Values and the VJP onto every argument, for a seeded cotangent."""
+    jout, jvjp = jax.vjp(jax.jit(jfn), *[jnp.asarray(a) for a in args])
+    targs = [torch.tensor(a, requires_grad=True) for a in args]
+    tout = tfn(*targs)
+    _nc_close(tout, jout, name)
+    cot = rng.normal(size=jout.shape).astype(np.float32)
+    jgrads = jvjp(jnp.asarray(cot))
+    tgrads = torch.autograd.grad(tout, targs, torch.from_numpy(cot), allow_unused=True)
+    for i, (t, j) in enumerate(zip(tgrads, jgrads)):
+        _nc_close(t, j, f"{name}: gradient of argument {i}")
+    return np.asarray(jout), tgrads
+
+
+def test_per_gaussian_api_matches_jax_with_vjps():
+    a, rng = _nc_inputs()
+    xc, _ = _nc_vjp("transform_points", jgeo.transform_points, tgeo.transform_points,
+                    (a["xyz"], a["pose"]), rng)
+    # one camera-frame point on the z = 0 plane takes the |z| > 1e-12 guard
+    xc_guard = xc.copy()
+    xc_guard[8, 2] = 0.0
+    uv, uv_grads = _nc_vjp("project_points", jgeo.project_points, tgeo.project_points,
+                           (xc_guard, a["K"]), rng)
+    np.testing.assert_array_equal(uv[8], a["K"][:2, 2])
+    assert float(uv_grads[0][8].abs().max()) == 0.0
+    sig, sig_grads = _nc_vjp("compute_sigma_world", jgeo.compute_sigma_world,
+                             tgeo.compute_sigma_world, (a["quat"], a["scale"]), rng)
+    # the dead slot takes the identity rotation and a finite, zero gradient
+    np.testing.assert_allclose(sig[7], np.diag(np.exp(2.0 * a["scale"][7])), rtol=1e-6)
+    assert float(sig_grads[0][7].abs().max()) == 0.0
+    J, _ = _nc_vjp("compute_projection_jacobian", jgeo.compute_projection_jacobian,
+                   tgeo.compute_projection_jacobian, (xc_guard, a["K"]), rng)
+    _, conic_grads = _nc_vjp("compute_conic", jgeo.compute_conic, tgeo.compute_conic,
+                             (sig, J, a["pose"]), rng)
+    assert conic_grads[2] is None  # no gradient to the pose
+
+
+def test_per_gaussian_api_matches_rows_chain():
+    """The (N, C) chain equals the port's rows chain, which the trainer runs."""
+    a, _ = _nc_inputs()
+    T = {k: torch.from_numpy(v) for k, v in a.items()}
+    xc = tgeo.transform_points(T["xyz"], T["pose"])
+    rows = tgeo.transform_rows(*T["xyz"].T, T["pose"])
+    torch.testing.assert_close(xc, torch.stack(rows, 1), rtol=0, atol=1e-6)
+    torch.testing.assert_close(tgeo.project_points(xc, T["K"]),
+                               torch.stack(tgeo.project_rows(*xc.T, T["K"]), 1))
+    sig = tgeo.compute_sigma_world(T["quat"], T["scale"])
+    six = tgeo.sigma_world_rows(T["quat"], T["scale"])
+    for (i, j), r in zip(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)), six):
+        torch.testing.assert_close(sig[:, i, j], r, rtol=1e-6, atol=1e-12)
+        torch.testing.assert_close(sig[:, j, i], r, rtol=1e-6, atol=1e-12)
+    conic = tgeo.compute_conic(sig, tgeo.compute_projection_jacobian(xc, T["K"]),
+                               T["pose"])
+    want = torch.stack(tgeo.conic_rows(six, *xc.T, T["K"], T["pose"]), 1)
+    torch.testing.assert_close(conic, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))

@@ -77,3 +77,40 @@ def test_mask_moments_matches_jax():
         assert int(t.count) == 5
     # the original state is left as it was
     np.testing.assert_array_equal(tstate.mu["xyz"].numpy(), mu["xyz"])
+
+
+def test_adam_moment_accessors_match_jax():
+    """``adam_moments`` and ``replace_adam_moments`` against the JAX
+    accessors on the optax chain's state, one moment replaced at a time,
+    then ``mask_moments`` on the result; count kept, the input untouched."""
+    rng = np.random.default_rng(2)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+    mu = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+    nu = {k: rng.uniform(size=s).astype(np.float32) for k, s in SHAPES.items()}
+    mask = rng.uniform(size=7) < 0.5
+    jstate = jo.make_optimizer(JConfig()).init({k: jnp.asarray(v) for k, v in params.items()})
+    tstate = to.init({k: torch.tensor(v) for k, v in params.items()})._replace(
+        count=torch.tensor(3, dtype=torch.int32))
+    for which in ("mu", "nu", "both"):
+        jkw, tkw = {}, {}
+        if which in ("mu", "both"):
+            jkw["mu"] = {k: jnp.asarray(v) for k, v in mu.items()}
+            tkw["mu"] = {k: torch.tensor(v) for k, v in mu.items()}
+        if which in ("nu", "both"):
+            jkw["nu"] = {k: jnp.asarray(v) for k, v in nu.items()}
+            tkw["nu"] = {k: torch.tensor(v) for k, v in nu.items()}
+        jnew = jo.replace_adam_moments(jstate, **jkw)
+        tnew = to.replace_adam_moments(tstate, **tkw)
+        jadam = jo.adam_moments(jnew)
+        tmu, tnu = to.adam_moments(tnew)
+        jmask = jo.adam_moments(jo.mask_moments(jnew, jnp.asarray(mask), leaves=("xyz", "sh")))
+        tmask = to.adam_moments(to.mask_moments(tnew, torch.tensor(mask), leaves=("xyz", "sh")))
+        for k in SHAPES:
+            np.testing.assert_array_equal(tmu[k].numpy(), np.asarray(jadam.mu[k]))
+            np.testing.assert_array_equal(tnu[k].numpy(), np.asarray(jadam.nu[k]))
+            np.testing.assert_array_equal(tmask[0][k].numpy(), np.asarray(jmask.mu[k]))
+            np.testing.assert_array_equal(tmask[1][k].numpy(), np.asarray(jmask.nu[k]))
+        assert int(tnew.count) == 3
+        mu0, nu0 = to.adam_moments(tstate)
+        assert all(float(mu0[k].abs().max()) == 0 and float(nu0[k].abs().max()) == 0
+                   for k in SHAPES)

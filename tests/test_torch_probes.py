@@ -20,7 +20,9 @@ from jax.experimental.pallas import tpu as pltpu
 from gaussian_splatting_torch import _build
 from gaussian_splatting_torch.experiments import cumsum_bench as tcs
 from gaussian_splatting_torch.experiments import dma_scatter_bench as tds
+from gaussian_splatting_torch.experiments import kernel_bench as tkb
 from gaussian_splatting_torch.experiments import permute_probe as tpp
+from gaussian_splatting_torch.experiments import sort_bench as tsb
 
 # Importing a JAX probe points JAX's persistent compilation cache at a
 # directory of its own; these are the options it sets.
@@ -177,6 +179,63 @@ def test_probe_main_runs_on_cpu(module, capsys):
     n_points = {tpp: len(tpp.GROUPS), tcs: len(tcs.CHUNKS),
                 tds: len(tds.BLOCK_ROWS) * len(tds.NSUBS)}[module]
     assert out.count(" OK") == n_points and "MISMATCH" not in out
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the plain walks are many small operations, whose
+    parallel regions crawl when other test workers hold every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_kernel_bench_main_runs_on_cpu(capsys, one_thread):
+    """The twin of ``experiments/kernel_bench.py`` on the CPU: B1 and B2's
+    plain versions at the cut size (12 tiles of 64 splats, one gaussian a
+    splat), each held to itself through the dispatcher, no launch."""
+    before = dict(_build.LAUNCHES)
+    res = tkb.main(["--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert dict(_build.LAUNCHES) == before
+    assert (res["tiles"], res["splats"]) == (12, 12 * tkb.DEPTH_CPU)
+    assert len(out) == 3 and out[1].startswith("B1 ") and out[2].startswith("B2, ")
+    assert "share not measured on the CPU" in out[1]
+    for k in ("B1", "B2"):
+        assert res[k]["ok"] and 0 < res[k]["composited"] <= res[k]["evaluated"]
+    # the draws: every splat centred within 4 px of its own tile
+    feat, gid, starts, x_tiles, cot = tkb.bench_inputs(
+        "cpu", tkb.HEIGHT_CPU, tkb.WIDTH_CPU, tkb.DEPTH_CPU)
+    tile = torch.repeat_interleave(torch.arange(12), tkb.DEPTH_CPU)
+    du = feat[0] - (tile % x_tiles) * 16
+    dv = feat[1] - (tile // x_tiles) * 16
+    assert float(du.min()) >= -4 and float(du.max()) < 20
+    assert float(dv.min()) >= -4 and float(dv.max()) < 20
+    assert torch.equal(gid, torch.arange(12 * tkb.DEPTH_CPU, dtype=torch.int32))
+    assert torch.equal(starts, torch.arange(13, dtype=torch.int32) * tkb.DEPTH_CPU)
+    assert cot.shape == (4, 12 * 256) and float(cot.abs().max()) <= 1.0
+
+
+def test_sort_bench_main_runs_on_cpu(capsys):
+    """The twin of ``experiments/sort_bench.py`` on the CPU at 2^12: every
+    point of the ladder, each sort's keys in order, one line a point."""
+    points = tsb.main(["--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    n_points = (len(tsb.OPERANDS) + len(tsb.PACKING)
+                + len(tsb.BATCH_ROWS) * len(tsb.BATCH_OPERANDS) + 1)
+    assert len(points) == n_points == len(out) - 1
+    assert {p["kind"] for p in points} == {"global", "int64 packing", "batched",
+                                           "layout key"}
+    assert all(p["n"] == tsb.SIZE_CPU and p["ms"] > 0 for p in points)
+    # the layout key sorts as culling.build_layout's: tile, then depth
+    rng = np.random.default_rng(0)
+    key, gid = tsb.layout_key(rng, 500, "cpu")
+    s, g = tsb.sort_with_values(key, [gid], stable=True)
+    assert torch.equal(s, key[g.long()])
+    assert bool(((s >> 32)[1:] >= (s >> 32)[:-1]).all())
 
 
 def _c_params(library, name):

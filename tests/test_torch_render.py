@@ -214,3 +214,25 @@ def test_unported_paths_raise():
         trsh.render_sh_fwd(sh_feat, basis, idx, starts, 1)
     with pytest.raises(ValueError, match="no kernel for device"):
         trsh.render_sh_bwd(sh_feat, basis, idx, starts, 1, raw, raw)
+
+
+def _nc_feature_inputs(n=64, seed=21):
+    """Seeded (N, C) per-gaussian arrays, float32, for the feature wrappers."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return dict(uv=f32(rng.uniform(-20, 700, (n, 2))),
+                opacity=f32(rng.uniform(0, 1, (n, 1))),
+                conic=f32(rng.uniform(-5, 50, (n, 3))),
+                rgb=f32(rng.normal(size=(n, 3)))), rng
+
+
+def test_splat_features_wrapper_matches_jax():
+    """``ops.render.splat_features``, the (N, C) wrapper, equals JAX's
+    bitwise: the same float32 additions and halvings."""
+    a, _ = _nc_feature_inputs()
+    got = trender.splat_features(*(torch.from_numpy(a[k]) for k in
+                                   ("uv", "opacity", "conic", "rgb")))
+    want = jrender.splat_features(*(jnp.asarray(a[k]) for k in
+                                    ("uv", "opacity", "conic", "rgb")))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (cc.N_FEAT, 64)

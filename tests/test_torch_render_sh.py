@@ -242,3 +242,19 @@ def test_render_sh_dispatch():
         trsh.render_sh_bwd(*meta)
     with pytest.raises(ValueError, match="n_sh must be one of"):
         trsh.render_sh_fwd(feat[:9], basis[:1], *fwd_args[2:])
+
+
+@pytest.mark.parametrize("n_sh", [4, 9, 16])
+def test_sh_splat_features_wrapper_matches_jax(n_sh):
+    """``ops.render_sh.sh_splat_features``, the (N, C) wrapper, equals JAX's
+    bitwise, the coefficients in the order c*n_sh + k."""
+    rng = np.random.default_rng(22 + n_sh)
+    n = 48
+    a = dict(uv=rng.uniform(-20, 700, (n, 2)), opacity=rng.uniform(0, 1, (n, 1)),
+             conic=rng.uniform(-5, 50, (n, 3)), coeffs=rng.normal(size=(n, 3, n_sh)))
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    names = ("uv", "opacity", "conic", "coeffs")
+    got = trsh.sh_splat_features(*(torch.from_numpy(a[k]) for k in names))
+    want = jrsh.sh_splat_features(*(jnp.asarray(a[k]) for k in names))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (trsh.sh_feat_rows(n_sh), n)
