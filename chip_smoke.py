@@ -7,6 +7,12 @@ golden pixels, then drives the paths below on the trained scene
 runs/refscale7k/scene_final.ply at 1296x840 and shows, by the launch
 counters, that each went through its kernels:
 
+- install ("[install]", right after the build): a copy of only what an
+  install ships (the package's .py files and pyproject.toml's package-data
+  files) builds both kernel libraries and both dataio libraries in a
+  process of its own, renders the fixture through B1, reads a COLMAP model
+  and decodes the JPEG fixtures, each result bitwise against this
+  checkout's;
 - serving: 4 orbit views (plus depth) through render_torch.render_views
   (kernels B1, B5);
 - serving, per-pixel SH: the 4 orbit views through
@@ -2493,6 +2499,145 @@ def serve_per_pixel(params, alive, poses, cam, scene_kw, dev):
     return launches
 
 
+INSTALL_PACKAGE = "gaussian_splatting_torch"
+INSTALL_TIMEOUT = 600  # seconds for the process that builds and runs the copy
+# the COLMAP model the installed reader reads: 3 views, 64 points
+INSTALL_VIEWS, INSTALL_POINTS = 3, 64
+
+
+def shipped_tree(dest):
+    """Copy into ``dest`` what an install of the port carries and nothing
+    else: the .py files of the package and of each subpackage (a directory
+    with an __init__.py), and the files that pyproject.toml's package-data
+    globs match.  Returns the data files, relative to ``dest``."""
+    import shutil
+    import tomllib
+    from pathlib import Path
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        package_data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    files = []
+    for dirpath, dirnames, filenames in os.walk(os.path.join(ROOT, INSTALL_PACKAGE)):
+        if "__init__.py" not in filenames:
+            dirnames.clear()
+            continue
+        files += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
+    data = [str(p) for package, globs in package_data.items() for pattern in globs
+            for p in Path(ROOT, *package.split(".")).glob(pattern)]
+    for path in files + data:
+        rel = os.path.relpath(path, ROOT)
+        os.makedirs(os.path.join(dest, os.path.dirname(rel)), exist_ok=True)
+        shutil.copyfile(path, os.path.join(dest, rel))
+    return sorted(os.path.relpath(p, ROOT) for p in data)
+
+
+def install_results(dev, colmap_dir):
+    """What the imported package gives on fixed inputs: the fixture through
+    B1 (one launch), the COLMAP model in ``colmap_dir`` through the native
+    reader, and the JPEG fixtures and their PNGs through the port's own
+    decoders.  Arrays by name."""
+    import torch
+
+    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch.dataio import colmap, dataset
+    from gaussian_splatting_torch.rasterize import rasterize
+
+    fx, cam, pose = fixture_scene(dev)
+    params = {k: v.detach() for k, v in fx.params().items()}
+    _build.LAUNCHES.clear()
+    res = rasterize(params, fx.alive, pose, cam, background_rgb=torch.zeros(3, device=dev),
+                    n_sh_band=0, **FX_RENDER)
+    torch.cuda.synchronize()
+    if dict(_build.LAUNCHES) != {"render_fwd": 1}:
+        raise AssertionError(f"[install] fixture render launched {dict(_build.LAUNCHES)}")
+    out = {"image": res.image.cpu().numpy(), "T": res.transmittance.cpu().numpy()}
+
+    sparse = os.path.join(colmap_dir, "sparse", "0")
+    cams = colmap.read_cameras_bin(os.path.join(sparse, "cameras.bin"))
+    readers = [colmap.last_reader]
+    images = colmap.read_images_bin(os.path.join(sparse, "images.bin"))
+    readers.append(colmap.last_reader)
+    out["xyz"], out["rgb"] = colmap.read_points3d_bin(os.path.join(sparse, "points3D.bin"))
+    readers.append(colmap.last_reader)
+    if readers != ["native"] * 3:
+        raise AssertionError(f"[install] COLMAP model read by {readers}, not the native reader")
+    out["camera"] = np.array([cams[1].width, cams[1].height, *cams[1].params])
+    out["qvec"] = np.stack([images[i].qvec for i in sorted(images)])
+    out["tvec"] = np.stack([images[i].tvec for i in sorted(images)])
+
+    with without_image_packages():
+        for name in JPEG_FIXTURE_NAMES:
+            for ext, decoder in ((".jpg", "jpeg"), (".png", "png")):
+                out[name + ext] = dataset.read_rgb(os.path.join(JPEG_FIXTURES, name + ext))
+                if dataset.last_decoder != decoder:
+                    raise AssertionError(f"[install] {name}{ext} decoded by "
+                                         f"{dataset.last_decoder}, not {decoder}")
+    return out
+
+
+def installed_run(tree, out, colmap_dir):
+    """The install check's process, with ``tree`` (shipped_tree's copy)
+    first on sys.path: build the two kernel libraries from the copy's
+    sources, save install_results (which builds the two dataio libraries)
+    to ``out``, and check that all four libraries were built in the copy."""
+    import gaussian_splatting_torch
+    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch.dataio import native
+
+    root = os.path.realpath(tree) + os.sep
+    if not os.path.realpath(gaussian_splatting_torch.__file__).startswith(root):
+        raise AssertionError(f"[install] imported {gaussian_splatting_torch.__file__}, "
+                             f"not the copy in {tree}")
+    t0 = time.perf_counter()
+    libraries = _build.build(*_build.SOURCE_DIRS)
+    for name in _build.SOURCE_DIRS:
+        _build.library(name)
+    np.savez(out, **install_results(DEVICE, colmap_dir))
+    libraries += [native.library_path(name) for name in native.SOURCES]
+    for so in libraries:
+        if not (os.path.realpath(so).startswith(root) and so.exists()):
+            raise AssertionError(f"[install] {so} is not a library built in the copy")
+    print(f"[install] built {', '.join(so.name for so in libraries)} from the copy and "
+          f"ran it in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def install_phase(dev):
+    """An installed port builds and runs from what it ships: shipped_tree's
+    copy, imported by a process of its own, builds every library and gives
+    the results of this checkout bitwise (install_results)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, colmap_dir = os.path.join(tmp, "tree"), os.path.join(tmp, "colmap")
+        native_files = shipped_tree(tree)
+        print(f"[install] shipped {len(native_files)} native sources: "
+              f"{', '.join(native_files)}")
+        rng = np.random.default_rng(0)
+        q = rng.normal(size=(INSTALL_VIEWS, 4))
+        write_colmap_model(
+            os.path.join(colmap_dir, "sparse", "0"), (97, 61, 82.0, 82.0, 48.5, 30.5),
+            q / np.linalg.norm(q, axis=1, keepdims=True),
+            rng.normal(size=(INSTALL_VIEWS, 3)),
+            [f"{i:03d}.png" for i in range(INSTALL_VIEWS)],
+            rng.normal(size=(INSTALL_POINTS, 3)),
+            rng.integers(0, 256, (INSTALL_POINTS, 3), dtype=np.uint8))
+        out = os.path.join(tmp, "installed.npz")
+        code = ("import sys; sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
+                "chip_smoke.installed_run(sys.argv[1], *sys.argv[3:])")
+        proc = subprocess.run([sys.executable, "-c", code, tree, ROOT, out, colmap_dir],
+                              cwd=tree, timeout=INSTALL_TIMEOUT)
+        if proc.returncode != 0:
+            raise AssertionError(f"[install] the installed copy failed ({proc.returncode})")
+        want = install_results(dev, colmap_dir)
+        with np.load(out) as got:
+            if set(got.files) != set(want):
+                raise AssertionError(f"[install] results {got.files} against {list(want)}")
+            for key, w in want.items():
+                g = got[key]
+                if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+                    raise AssertionError(f"[install] {key} differs from this checkout's")
+        print(f"[install] the copy's fixture render through B1, COLMAP read and "
+              f"{2 * len(JPEG_FIXTURE_NAMES)} decodes equal this checkout's bitwise")
+
+
 def main():
     import torch
 
@@ -2527,6 +2672,10 @@ def main():
                     print(f"[build]   {line.strip()}")
         _build.library("kernels")
         _build.library("probes")
+
+    # 2b. what an install ships builds and runs, in a process of its own
+    with phase("install"):
+        install_phase(dev)
 
     from gaussian_splatting_torch.config import SplatConfig
     from gaussian_splatting_torch.ops.render import render_bwd_cuda, render_bwd_plain

@@ -35,6 +35,7 @@ from gaussian_splatting_torch import convert, geometry, trainer
 from gaussian_splatting_torch.config import SplatConfig
 from tests import fixtures as fx
 from tests.test_trainer import _dense_state
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 REL_TOL = 1e-6
 # uv_split_val, the uv quantile: XLA's CPU backend fuses a product into the
@@ -60,6 +61,18 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+@jax.jit
+def _jax_render(params, alive, pose, cam):
+    """The JAX rasterize's DC image at JCFG, jitted (eager dispatch of its
+    layout takes ~7x longer)."""
+    return jrasterize(
+        params, alive, pose, cam, near_thresh=JCFG.near_thresh,
+        far_thresh=JCFG.far_thresh, cull_mask_padding=JCFG.cull_mask_padding,
+        mh_dist=JCFG.mh_dist, background_rgb=jnp.zeros(3, jnp.float32), n_sh_band=0,
+        splat_capacity=JCFG.splat_capacity, chunk=JCFG.chunk,
+        kernel_precision="f32").image
+
+
 @pytest.fixture(scope="module")
 def stepped():
     """The fixture scene (capacity 16) after 2 JAX train steps towards its
@@ -67,12 +80,7 @@ def stepped():
     scene = fx.test_scene(opacity_presigmoid=True, capacity=16)
     pose, cam = fx.test_camera_T_world(), fx.test_camera()
     state = jt.init_train_state(scene, JCFG)
-    gt = jnp.clip(jrasterize(
-        scene.params(), scene.alive, pose, cam, near_thresh=JCFG.near_thresh,
-        far_thresh=JCFG.far_thresh, cull_mask_padding=JCFG.cull_mask_padding,
-        mh_dist=JCFG.mh_dist, background_rgb=jnp.zeros(3, jnp.float32), n_sh_band=0,
-        splat_capacity=JCFG.splat_capacity, chunk=JCFG.chunk,
-        kernel_precision="f32").image, 0.0, 1.0)
+    gt = jnp.clip(_jax_render(scene.params(), scene.alive, pose, cam), 0.0, 1.0)
     params = dict(state.params)
     params["rgb"] = params["rgb"] * 0.5
     state = state._replace(params=params)

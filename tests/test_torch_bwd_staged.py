@@ -32,6 +32,7 @@ from tests.test_torch_render import _fixture_rows, _seeded_rows
 from tests.test_torch_render_bwd import _rel_err
 from tests.test_torch_render_sh import _port as _sh_port
 from tests.test_torch_render_sh import _sh_rows
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # the model and the plain versions sum the same terms in other orders
 STAGED_REL_TOL = 1e-5

@@ -36,6 +36,7 @@ from tests.test_torch_trainer import (
     _np,
     _rel,
 )
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # 12 views of 97x61 (odd, not a multiple of the 16-pixel tile), 2,000 secret
 # points, 300 of them as the SfM points; focal 82 keeps the capture's field

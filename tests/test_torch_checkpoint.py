@@ -21,6 +21,7 @@ from gaussian_splatting_tpu import trainer as jt
 from gaussian_splatting_tpu.config import SplatConfig as JConfig
 from gaussian_splatting_tpu.structs import GaussianScene as JScene
 from tests import fixtures as fx
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 JCFG = JConfig(splat_capacity=1 << 17, chunk=256, kernel_precision="f32")
 CFG = SplatConfig()

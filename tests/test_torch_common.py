@@ -19,6 +19,7 @@ from gaussian_splatting_torch import config as tcfg
 from gaussian_splatting_torch import geometry as tgeo
 from gaussian_splatting_torch import structs as tstructs
 from gaussian_splatting_torch.ops import common as tcc
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,3 +105,22 @@ def test_port_never_imports_jax():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 12  # every module was walked
+
+
+# the audit reads the JAX package's source with ast and runs no torch; it
+# is held as it was written
+ONE_THREAD_EXEMPT = {"test_torch_coverage.py"}
+
+
+def test_every_port_test_file_runs_on_one_thread():
+    """Each port test file takes in tests/torch_testutil.py's module-scoped
+    autouse fixture (one intra-op thread), so that no file of the port
+    oversubscribes the cores that Tier-1's workers share."""
+    line = "from tests.torch_testutil import one_intra_op_thread  # noqa: F401"
+    tests = os.path.join(ROOT, "tests")
+    files = sorted(f for f in os.listdir(tests)
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(files) > 30
+    lacking = [f for f in files if f not in ONE_THREAD_EXEMPT
+               and line not in open(os.path.join(tests, f)).read().splitlines()]
+    assert not lacking, f"without the one-thread fixture: {lacking}"

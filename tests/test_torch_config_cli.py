@@ -14,6 +14,7 @@ import train
 import train_torch
 from gaussian_splatting_torch import config as tconfig
 from gaussian_splatting_tpu import config as jconfig
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFSCALE_YAML = os.path.join(ROOT, "runs", "refscale7k", "config.yaml")

@@ -17,6 +17,7 @@ from gaussian_splatting_torch import culling as tcu
 from gaussian_splatting_torch.structs import TileGrid
 from tests import fixtures as fx
 from tests.test_culling import EXPECTED_CULLED_IDX
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 CAP = 1 << 16
 # jitted: eager dispatch of the JAX layout's tier ladder takes ~10x longer

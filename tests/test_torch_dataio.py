@@ -21,6 +21,7 @@ from gaussian_splatting_torch.dataio import native as tnative
 from gaussian_splatting_torch.dataio.png import write_png
 from gaussian_splatting_tpu.config import SplatConfig as JConfig
 from gaussian_splatting_tpu.dataio import dataset as jds
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 DOWNSAMPLE = 2
 W, H = 96, 64  # the downsampled images

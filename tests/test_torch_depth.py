@@ -17,6 +17,7 @@ from gaussian_splatting_torch.culling import build_layout
 from gaussian_splatting_torch.ops import depth as tdepth
 from gaussian_splatting_torch.rasterize import render_depth
 from tests.test_torch_render import _fixture_rows, _fixture_scene, _seeded_rows
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # Both renderers return the distance feature of the crossing splat itself,
 # so where they pick the same splat the values are equal.  The crossing test

@@ -31,6 +31,7 @@ from tests.test_torch_bwd_staged import _far_rows
 from tests.test_torch_fwd_packed import SMALL_BATCH, _kernel_batch
 from tests.test_torch_probes import _c_params
 from tests.test_torch_render import _fixture_rows
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 REC_DIST = trender.REC_RDET + 1  # the distance's float in a depth record
 

@@ -29,6 +29,7 @@ from gaussian_splatting_torch.ops import render_sh as trsh
 from gaussian_splatting_torch.structs import TILE_PX
 from tests.test_torch_bwd_staged import _dc_inputs, _sh_inputs
 from tests.test_torch_probes import _c_params
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # the model and the plain versions composite in the same order; they differ
 # by exp's rounding, the fused multiply-adds of B3's contraction and T's

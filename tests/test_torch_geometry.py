@@ -9,6 +9,7 @@ import torch
 
 from gaussian_splatting_tpu import geometry as jgeo
 from gaussian_splatting_torch import geometry as tgeo
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 N = 500
 # float32: both packages run the same operations in the same order, so

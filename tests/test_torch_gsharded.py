@@ -19,6 +19,7 @@ from gaussian_splatting_torch import trainer
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.convert import scene_from_numpy
 from gaussian_splatting_torch.parallel import comm, gsharded
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 D = 2
 HW = (48, 64)

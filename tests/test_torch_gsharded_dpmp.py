@@ -19,6 +19,7 @@ from gaussian_splatting_torch.convert import scene_from_numpy
 from gaussian_splatting_torch.parallel import comm, gsharded
 from gaussian_splatting_torch.parallel import mesh as pmesh
 from tests.test_torch_gsharded import leaves
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 DP, MP = 2, 2
 HW = (48, 64)

@@ -21,6 +21,7 @@ from gaussian_splatting_torch.dataio import dataset as tds
 from gaussian_splatting_torch.dataio import native
 from gaussian_splatting_torch.dataio.jpeg import read_jpeg
 from gaussian_splatting_torch.dataio.png import read_png, write_png
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "runs", "refscale7k", "iter7000_test_image_0.png")

@@ -14,6 +14,7 @@ import torch
 
 from gaussian_splatting_tpu import losses as jl
 from gaussian_splatting_torch import losses as tl
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # values: float32 sums over ~1e4 terms in other orders
 VALUE_RTOL = 1e-5

@@ -11,6 +11,7 @@ from gaussian_splatting_tpu import optim as jo
 from gaussian_splatting_tpu.config import SplatConfig as JConfig
 from gaussian_splatting_torch import optim as to
 from gaussian_splatting_torch.config import SplatConfig
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 SHAPES = dict(xyz=(7, 3), quaternion=(7, 4), scale=(7, 3), opacity=(7, 1),
               rgb=(7, 3), sh=(7, 3, 15))

@@ -15,6 +15,7 @@ from gaussian_splatting_torch import convert
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.parallel import comm
 from gaussian_splatting_torch.parallel import mesh as pmesh
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 D = 2
 SH_BAND = 3

@@ -19,6 +19,7 @@ import train_torch
 from gaussian_splatting_torch.parallel import comm
 from gaussian_splatting_torch.parallel import mesh as pmesh
 from gaussian_splatting_torch.parallel.dryrun import dryrun_multigpu
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # test_torch_runner.py's tiny run: ADC at 4 and 8, a reset at 6, a
 # checkpoint at 5, debug images at 4 and 8, evals at 0, 5 and the end

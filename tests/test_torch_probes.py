@@ -23,6 +23,7 @@ from gaussian_splatting_torch.experiments import dma_scatter_bench as tds
 from gaussian_splatting_torch.experiments import kernel_bench as tkb
 from gaussian_splatting_torch.experiments import permute_probe as tpp
 from gaussian_splatting_torch.experiments import sort_bench as tsb
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # Importing a JAX probe points JAX's persistent compilation cache at a
 # directory of its own; these are the options it sets.
@@ -181,19 +182,7 @@ def test_probe_main_runs_on_cpu(module, capsys):
     assert out.count(" OK") == n_points and "MISMATCH" not in out
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the plain walks are many small operations, whose
-    parallel regions crawl when other test workers hold every core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
-def test_kernel_bench_main_runs_on_cpu(capsys, one_thread):
+def test_kernel_bench_main_runs_on_cpu(capsys):
     """The twin of ``experiments/kernel_bench.py`` on the CPU: B1 and B2's
     plain versions at the cut size (12 tiles of 64 splats, one gaussian a
     splat), each held to itself through the dispatcher, no launch."""

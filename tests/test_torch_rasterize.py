@@ -29,6 +29,7 @@ from gaussian_splatting_torch import convert
 from gaussian_splatting_torch.rasterize import rasterize, render_depth
 from gaussian_splatting_torch.structs import Camera
 from tests import fixtures as fx
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(ROOT, "runs", "refscale7k", "scene_final.ply")

@@ -27,6 +27,7 @@ from gaussian_splatting_torch.dataio import dataset as tds
 from gaussian_splatting_torch.dataio.dataset import make_synthetic_scene_data
 from gaussian_splatting_torch.experiments import make_bench_scene, refscale_run
 from tests.test_torch_runner import Recorder, _record_port
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECORD = os.path.join(ROOT, "runs", "refscale7k")

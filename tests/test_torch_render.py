@@ -22,6 +22,7 @@ from gaussian_splatting_torch.ops import render_sh as trsh
 from gaussian_splatting_torch.rasterize import rasterize
 from gaussian_splatting_torch.structs import Camera, GaussianScene, TileGrid
 from tests import fixtures as fx
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # JAX composites with exp(sum log1p(-alpha)) prefix products, the port with
 # sequential products: on these inputs the two differ by float32 rounding,

@@ -31,6 +31,7 @@ from gaussian_splatting_torch.rasterize import rasterize
 from gaussian_splatting_torch.structs import Camera
 from tests import fixtures as fx
 from tests.test_torch_render import _fixture_rows, _seeded_rows
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # f32 against the JAX kernel, per feature row (u, v, op, a, b, c, r, g, b).
 # Both sum ~1e3 per-pixel terms per gaussian in other orders, and JAX forms

@@ -30,6 +30,7 @@ from gaussian_splatting_torch.structs import TileGrid
 from tests import fixtures as fx
 from tests.test_render_grads import _small_camera
 from tests.test_torch_render_bwd import _rel_err
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 # JAX composites with exp(sum log1p(-alpha)) prefix products and contracts
 # the basis after summing coefficient * weight over splats; the port

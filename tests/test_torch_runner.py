@@ -27,6 +27,7 @@ from gaussian_splatting_tpu import runner as jrunner
 from gaussian_splatting_tpu import trainer as jtrainer
 from gaussian_splatting_tpu.config import SplatConfig as JConfig
 from gaussian_splatting_tpu.ops import common as jcc
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

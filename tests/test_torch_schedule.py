@@ -46,6 +46,7 @@ from gaussian_splatting_tpu import trainer as jtrainer
 from gaussian_splatting_tpu.config import SplatConfig as JConfig
 from tests import schedule_attribution as attribution
 from tests.test_torch_adc import _assert_states_match
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

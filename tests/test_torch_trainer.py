@@ -27,6 +27,7 @@ from gaussian_splatting_torch import convert, trainer
 from gaussian_splatting_torch.config import SplatConfig
 from tests import fixtures as fx
 from tests.test_render_grads import _small_camera
+from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
 JCFG = JConfig(splat_capacity=1 << 17, chunk=256, kernel_precision="f32")
 CFG = SplatConfig()
