@@ -744,7 +744,7 @@ def training_phase(setup, cfg, steps, tag, kernels):
     rasterizer.  Returns (launches, median step ms)."""
     import torch
 
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
 
     scene, poses, K, cam = setup["scene"], setup["poses"], setup["K"], setup["cam"]
     bgs, gts = setup["bgs"], setup["gts"]
@@ -760,7 +760,7 @@ def training_phase(setup, cfg, steps, tag, kernels):
     n = scene.capacity
     expected = torch.zeros(n, dtype=torch.int32, device=K.device)
     losses, step_ms = [], []
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     for i in range(steps):
         pose = poses[i % N_VIEWS]
         expected += visible_rows(state.params, state.alive, pose, cam, cfg).to(torch.int32)
@@ -774,7 +774,7 @@ def training_phase(setup, cfg, steps, tag, kernels):
               f"{losses[-1]:.6f} psnr {float(info['psnr']):.4f} splats "
               f"{info['num_splats']} visible {info['num_visible']} "
               f"({step_ms[-1]:.2f} ms)")
-    launches = dict(_build.LAUNCHES)
+    launches = dict(telemetry.LAUNCHES)
     print(f"[{tag}] launches {launches}")
 
     want = {name: steps for name in kernels}
@@ -828,16 +828,16 @@ def dc_steps(state, setup, cfg, first, steps, tag):
     """DC train steps first .. first + steps - 1 on the training setup's
     views and targets; each must launch B1 and B2 once, and no other
     rasterizer, with a finite loss.  Returns (state, launches)."""
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
 
     kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
     losses = []
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     for i in range(first, first + steps):
         state, info = trainer.train_step(state, setup["gts"][i], setup["K"],
                                          setup["poses"][i % N_VIEWS], setup["bgs"][i], **kw)
         losses.append(float(info["loss"]))
-    launches = dict(_build.LAUNCHES)
+    launches = dict(telemetry.LAUNCHES)
     print(f"[{tag}] steps {first}-{first + steps - 1}: losses "
           f"{' '.join(f'{x:.6f}' for x in losses)}; launches {launches}")
     want = {"render_fwd": steps, "render_bwd": steps}
@@ -1168,7 +1168,7 @@ def refscale_phase(smi):
     import torch
 
     import train_torch
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
     from gaussian_splatting_torch import checkpoint as ckpt
     from gaussian_splatting_torch.experiments import refscale_run
     from gaussian_splatting_torch.runner import TrainingRunner, scheduled_events
@@ -1182,7 +1182,7 @@ def refscale_phase(smi):
               f"runs' files; {smi}")
         steps, evals, events, resets, census = [], [], [], [], []
         torch.cuda.reset_peak_memory_stats()
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         t0 = time.perf_counter()
         with delete_census(trainer, [e["iter"] for e in record["adc_events"]], census), \
                 call_times(trainer, "train_step", steps, sync=False), \
@@ -1191,7 +1191,7 @@ def refscale_phase(smi):
                 call_times(TrainingRunner, "_densify", events, sync=True):
             runner = refscale_run.main([out, "--device", DEVICE], **REFSCALE_TRACE)
         run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = dict(telemetry.LAUNCHES)
         totals.update(launches)
         peak_mem = torch.cuda.max_memory_allocated()
         cfg, m = runner.config, runner.metrics
@@ -1345,13 +1345,13 @@ def refscale_phase(smi):
         path = os.path.join(out, f"ckpt_iter_{REFSCALE_CHECKPOINT}.npz")
         with np.load(path) as z:
             saved_alive = int(z["alive"].sum())
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         t0 = time.perf_counter()
         runner = train_torch.main(refscale_run.train_argv(
             out2, DEVICE, num_iters=REFSCALE_RESUME_ITERS, load_checkpoint=True,
             checkpoint_path=path))
         resume_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = dict(telemetry.LAUNCHES)
         totals.update(launches)
         m = runner.metrics
         check_cli_run(runner, out2, launches, REFSCALE_CHECKPOINT, REFSCALE_RESUME_ITERS,
@@ -1625,7 +1625,7 @@ def capture_phase(smi):
 
     import render_torch
     import train_torch
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
     from gaussian_splatting_torch import checkpoint as ckpt
     from gaussian_splatting_torch.dataio import dataset
     from gaussian_splatting_torch.dataio.png import read_png
@@ -1656,7 +1656,7 @@ def capture_phase(smi):
             return lambda feat, basis, *a, **k: by_n_sh.update([(name, basis.shape[0])])
 
         torch.cuda.reset_peak_memory_stats()
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         t0 = time.perf_counter()
         with call_times(trainer, "train_step", steps, sync=False), \
                 call_times(TrainingRunner, "evaluate", evals, sync=True), \
@@ -1670,7 +1670,7 @@ def capture_phase(smi):
                 use_sh_precompute=False,
                 **dict(CLI_SCHEDULE, profile_start=CAPTURE_PROFILE_START)))
         run_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = dict(telemetry.LAUNCHES)
         totals.update(launches)
         peak_mem = torch.cuda.max_memory_allocated()
         cfg, m = runner.config, runner.metrics
@@ -1784,7 +1784,7 @@ def capture_phase(smi):
         images = f"images_{CAPTURE_DOWNSAMPLE}"
         os.symlink(os.path.join(root, images), os.path.join(root2, images))
         renders = os.path.join(tmp, "renders")
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         t0 = time.perf_counter()
         views = render_torch.main([
             os.path.join(out, "ckpt_final.npz"), "--dataset_path", root2,
@@ -1792,7 +1792,7 @@ def capture_phase(smi):
             "--device", DEVICE])
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = dict(telemetry.LAUNCHES)
         totals.update(launches)
         pngs = sorted(os.listdir(renders))
         print(f"[capture] render_torch.main --dataset_path (the {len(test)} test views) "
@@ -1911,7 +1911,7 @@ def _mgpu_nccl_rank():
     against trainer.train_step on garden view 0."""
     import torch
 
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
     from gaussian_splatting_torch.config import SplatConfig
     from gaussian_splatting_torch.parallel import comm, gsharded
     from gaussian_splatting_torch.parallel import mesh as pmesh
@@ -1927,9 +1927,9 @@ def _mgpu_nccl_rank():
     for name, make, step in (("mp_train_step", comm.make_model_mesh, gsharded.mp_train_step),
                              ("dp_train_step", comm.make_mesh, pmesh.dp_train_step)):
         mesh = make(device_type="cuda")
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         got, info = step(state, gts[0], cam.K, poses[0], black, mesh=mesh, **kw)
-        launches.update(_build.LAUNCHES)
+        launches.update(telemetry.LAUNCHES)
         out[name] = _step_errors(got, want, info, winfo)
     return dict(out, backend=torch.distributed.get_backend(), launches=dict(launches))
 
@@ -1941,7 +1941,7 @@ def _mgpu_pair_rank():
     gradients taken in one process."""
     import torch
 
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
     from gaussian_splatting_torch.config import SplatConfig
     from gaussian_splatting_torch.parallel import comm, gsharded
     from gaussian_splatting_torch.parallel import mesh as pmesh
@@ -1962,30 +1962,30 @@ def _mgpu_pair_rank():
         with torch.no_grad():
             want = rasterize(state.params, state.alive, poses[0], cam, background_rgb=bg,
                              n_sh_band=SH_BAND, use_sh_precompute=pre, **_scene_kw())
-            _build.LAUNCHES.clear()
+            telemetry.LAUNCHES.clear()
             img, vis, info = gsharded.mp_render(
                 shard.params, shard.alive, poses[0], cam.K, background_rgb=bg,
                 mesh=mesh, **kw)
-            launches.update(_build.LAUNCHES)
+            launches.update(telemetry.LAUNCHES)
         out[f"render_{path}"] = dict(
             err=float((img - want.image).abs().max()), splats=int(info["num_splats"]),
             want_splats=want.num_splats,
             visible_ok=bool(torch.equal(vis, want.visible.chunk(mesh.mp)[mesh.model_rank])))
         ref, rinfo = trainer.train_step(state, gts[0], cam.K, poses[0], bg, **kw)
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         got, ginfo = gsharded.mp_train_step(shard, gts[0], cam.K, poses[0], bg,
                                             mesh=mesh, **kw)
-        launches.update(_build.LAUNCHES)
+        launches.update(telemetry.LAUNCHES)
         out[f"step_{path}"] = _step_errors(gsharded.gather_state(got, mesh), ref, ginfo, rinfo)
 
     # data parallelism: the mean of the two views' gradients in one process
     cfg = SplatConfig()
     kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
     dmesh = comm.make_mesh(device_type="cuda")
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     got, ginfo = pmesh.dp_train_step(state, gts[rank], cam.K, poses[rank], bg,
                                      mesh=dmesh, **kw)
-    launches.update(_build.LAUNCHES)
+    launches.update(telemetry.LAUNCHES)
     runs = [trainer.camera_loss(state, gts[v], cam.K, poses[v], bg, **kw) for v in range(2)]
     grads = {k: (runs[0][2][k] + runs[1][2][k]) / 2 for k in runs[0][2]}
     loss = (runs[0][0] + runs[1][0]) / 2
@@ -2068,7 +2068,7 @@ def _mgpu_cli_rank(argv, out, iters, tag):
     import torch
 
     import train_torch
-    from gaussian_splatting_torch import _build, trainer
+    from gaussian_splatting_torch import telemetry, trainer
     from gaussian_splatting_torch import checkpoint as ckpt
     from gaussian_splatting_torch.parallel import gsharded
     from gaussian_splatting_torch.parallel import mesh as pmesh
@@ -2081,7 +2081,7 @@ def _mgpu_cli_rank(argv, out, iters, tag):
             saved[path] = trainer.map_state(lambda x: x.detach().cpu(), runner.state)
 
     torch.cuda.reset_peak_memory_stats()
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     with call_times(pmesh, "dp_train_step", steps, sync=False), \
             call_times(gsharded, "dp_mp_train_step", steps, sync=False), \
             call_times(TrainingRunner, "_densify", events, sync=True,
@@ -2089,7 +2089,7 @@ def _mgpu_cli_rank(argv, out, iters, tag):
             call_times(TrainingRunner, "_save_checkpoint", [], sync=False,
                        after=keep_checkpoint):
         runner = train_torch.main(argv)
-    launches = dict(_build.LAUNCHES)
+    launches = dict(telemetry.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     torch.distributed.barrier()  # rank 0 has written the run's files
     check_cli_run(runner, out, launches, 0, iters, f"{tag} rank {runner.mesh.rank}")
@@ -2274,7 +2274,7 @@ def run_probes(smi):
     point's kernel against its plain version (E1 and E3 bitwise, E2 within
     cumsum_bench.SCAN_TOL), the kernel, plain and library-call times, and
     the bound.  Returns ({counter: the representative point}, launches)."""
-    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch import telemetry
     from gaussian_splatting_torch.experiments import (
         cumsum_bench,
         dma_scatter_bench,
@@ -2288,7 +2288,7 @@ def run_probes(smi):
     agreement = {"permute_probe": "bitwise",
                  "scan_probe": f"tol {cumsum_bench.SCAN_TOL}",
                  "place_probe": "bitwise"}
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     sweeps, failed = {}, []
     for key, mod in modules.items():
         points, info = mod.sweep(DEVICE)
@@ -2306,7 +2306,7 @@ def run_probes(smi):
         if "sort" in info:
             print(f"[probe] {key}: {sort_line(info['sort'])} ({info['clock']})")
         sweeps[key] = points
-    launches = dict(_build.LAUNCHES)
+    launches = dict(telemetry.LAUNCHES)
     print(f"[probe] launches {launches}")
     if failed:
         raise AssertionError(f"probe kernels disagree with their plain versions: {failed}")
@@ -2328,11 +2328,11 @@ def kernel_bench_block(smi):
     operands, and the layout's int64 key).  Its launches are comparisons,
     not a main path: the counter is cleared before and after it.  Returns
     the kernel_bench result."""
-    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch import telemetry
     from gaussian_splatting_torch.experiments import kernel_bench, sort_bench
 
     t0 = time.perf_counter()
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     res = kernel_bench.run(DEVICE)
     for line in kernel_bench.lines(res):
         print(f"[kernel-bench] {line}; {smi}")
@@ -2340,81 +2340,55 @@ def kernel_bench_block(smi):
                                      packing=(), batch_rows=())
     for p in points:
         print(f"[kernel-bench] sort {sort_bench.line(p)} ({info['clock']}; {smi})")
-    print(f"[kernel-bench] launches {dict(_build.LAUNCHES)} (comparisons and timing); "
+    print(f"[kernel-bench] launches {dict(telemetry.LAUNCHES)} (comparisons and timing); "
           f"{time.perf_counter() - t0:.1f} s")
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     return res
 
 
-# device kernels named in the step profile, by a part of their symbol
-KERNEL_PARTS = (
-    ("pack_fwd_rows_kernel", "pack of B1/B3/B5's records"),
-    ("tile_order_kernel", "B1/B3/B5's tile order"),
-    ("render_fwd_kernel", "B1 (DC forward kernel)"),
-    ("render_bwd_kernel", "B2 (DC backward kernel)"),
-    ("render_sh_fwd_kernel", "B3 (per-pixel SH forward kernel)"),
-    ("render_sh_bwd_kernel", "B4 (per-pixel SH backward kernel)"),
-)
+# the parts of a step that gsbench.trace.read attributes device time to
+PART_LABELS = {
+    "fwd_prep": "pack and tile order of B1/B3/B5",
+    "render_fwd": "B1 (DC forward kernel)",
+    "render_bwd": "B2 (DC backward kernel)",
+    "render_sh_fwd": "B3 (per-pixel SH forward kernel)",
+    "render_sh_bwd": "B4 (per-pixel SH backward kernel)",
+    "layout": "forward tile layout",
+    "render": "forward geometry, SH, compositing glue",
+    "loss": "L1 + SSIM forward",
+    "adam": "Adam, step skip, accumulators",
+    "backward": "backward: the gs::backward span",
+    "unspanned": "backward: autograd through SSIM, L1, geometry",
+}
 
 
 def profile_step(step, median_ms, tag):
-    """One training step under torch.profiler: device time by part of the
+    """One training step under torch.profiler, read by the benchmark's
+    reader of a trace (``gsbench.trace.read``): device time by part of the
     step and by kernel, and the device's idle share of a step.  Returns the
-    device-busy ms.
-
-    The trainer's record_function ranges (gs::render, gs::layout, gs::loss,
-    gs::adam) appear on the device timeline as spans; a kernel belongs to
-    the innermost span it starts in.  Autograd launches the backward from
-    its own thread, outside those spans: the kernels in no span are the
-    backward (B2 or B4, autograd through SSIM, L1 and the geometry)."""
+    device-busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from gsbench import trace
 
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ranges = ("gs::render", "gs::layout", "gs::loss", "gs::backward", "gs::adam")
-    spans = {}
-    for e in device:
-        if e.name in ranges:
-            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
-    kernels = [e for e in device if e.name not in ranges]
-
-    def within(name, k):
-        return any(a <= k.time_range.start < b for a, b in spans.get(name, []))
-
-    def part_of(k):
-        for sym, part in KERNEL_PARTS:
-            if sym in k.name:
-                return part
-        if within("gs::layout", k):
-            return "forward tile layout"
-        if within("gs::render", k):
-            return "forward geometry, SH, compositing glue"
-        if within("gs::loss", k):
-            return "L1 + SSIM forward"
-        if within("gs::adam", k):
-            return "Adam, step skip, accumulators"
-        return "backward: autograd through SSIM, L1, geometry"
-
-    parts, by_kernel = {}, {}
-    for k in kernels:
-        ms = k.time_range.elapsed_us() / 1e3
-        by_kernel[k.name] = by_kernel.get(k.name, 0.0) + ms
-        part = part_of(k)
-        parts[part] = parts.get(part, 0.0) + ms
-    busy_ms = sum(parts.values())
-    print(f"[profile] one {tag} step: device busy {busy_ms:.3f} ms in {len(kernels)} "
-          f"device ops; idle share {1 - busy_ms / median_ms:.3f} of the "
-          f"{median_ms:.3f} ms median step")
-    for part, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {ms:8.3f} ms  {ms / busy_ms:6.1%}  {part}")
+        window_s = time.perf_counter() - t0
+    t = trace.read(prof, 1, window_s)
+    busy_ms = t.busy_s * 1e3
+    print(f"[profile] one {tag} step: device busy {busy_ms:.3f} ms; idle share "
+          f"{1 - busy_ms / median_ms:.3f} of the {median_ms:.3f} ms median step")
+    total = sum(t.parts.values())
+    for part, s in sorted(t.parts.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {s * 1e3:8.3f} ms  {s / total:6.1%}  {PART_LABELS.get(part, part)}")
     print("[profile] largest device ops:")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile]   {ms:8.3f} ms  {name[:100]}")
+    for name, s in t.device_ops:
+        print(f"[profile]   {s * 1e3:8.3f} ms  {name[:100]}")
     # the full table goes to standard error, out of the way of the summary
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40),
           file=sys.stderr)
@@ -2445,9 +2419,9 @@ def check_goldens(fx, fx_cam, fx_pose, fx_alpha, dev):
         if abs(got - want) > DEPTH_GOLDEN_TOL:
             raise AssertionError("depth golden pixel off")
 
-    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch import telemetry
 
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     sh_img = rasterize(with_sh(fx_params, np.full((6, 3, 15), 0.1)), fx.alive,
                        fx_pose, fx_cam, background_rgb=bg, n_sh_band=3,
                        use_sh_precompute=False, **FX_RENDER).image.cpu().numpy()
@@ -2463,8 +2437,8 @@ def check_goldens(fx, fx_cam, fx_pose, fx_alpha, dev):
                         use_sh_precompute=False, **FX_RENDER).image
     dc_err = float((zero_hi - img).abs().max())
     print(f"[golden] zero bands 1-3 through B3 vs the DC path through B1: max "
-          f"|image| {dc_err:.3e} (tol {SH_DC_TOL}); launches {dict(_build.LAUNCHES)}")
-    if dc_err > SH_DC_TOL or _build.LAUNCHES["render_sh_fwd"] != 2:
+          f"|image| {dc_err:.3e} (tol {SH_DC_TOL}); launches {dict(telemetry.LAUNCHES)}")
+    if dc_err > SH_DC_TOL or telemetry.LAUNCHES["render_sh_fwd"] != 2:
         raise AssertionError("per-pixel SH with zero higher bands differs from DC")
 
 
@@ -2473,17 +2447,17 @@ def serve_per_pixel(params, alive, poses, cam, scene_kw, dev):
     use_sh_precompute=False.  Returns the launches."""
     import torch
 
-    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch import telemetry
     from gaussian_splatting_torch.rasterize import rasterize
 
     bg = torch.zeros(3, device=dev)
     with torch.no_grad():
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         results = [rasterize(params, alive, pose, cam, background_rgb=bg,
                              n_sh_band=SH_BAND, use_sh_precompute=False, **scene_kw)
                    for pose in poses]
         torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+        launches = dict(telemetry.LAUNCHES)
     print(f"[main-sh] launches {launches}")
     if launches != {"render_sh_fwd": N_VIEWS}:
         raise AssertionError(f"expected {N_VIEWS} launches of B3 only, got {launches}")
@@ -2538,18 +2512,18 @@ def install_results(dev, colmap_dir):
     decoders.  Arrays by name."""
     import torch
 
-    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch import telemetry
     from gaussian_splatting_torch.dataio import colmap, dataset
     from gaussian_splatting_torch.rasterize import rasterize
 
     fx, cam, pose = fixture_scene(dev)
     params = {k: v.detach() for k, v in fx.params().items()}
-    _build.LAUNCHES.clear()
+    telemetry.LAUNCHES.clear()
     res = rasterize(params, fx.alive, pose, cam, background_rgb=torch.zeros(3, device=dev),
                     n_sh_band=0, **FX_RENDER)
     torch.cuda.synchronize()
-    if dict(_build.LAUNCHES) != {"render_fwd": 1}:
-        raise AssertionError(f"[install] fixture render launched {dict(_build.LAUNCHES)}")
+    if dict(telemetry.LAUNCHES) != {"render_fwd": 1}:
+        raise AssertionError(f"[install] fixture render launched {dict(telemetry.LAUNCHES)}")
     out = {"image": res.image.cpu().numpy(), "T": res.transmittance.cpu().numpy()}
 
     sparse = os.path.join(colmap_dir, "sparse", "0")
@@ -2645,7 +2619,7 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, ROOT)
-    from gaussian_splatting_torch import _build
+    from gaussian_splatting_torch import _build, telemetry
 
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
@@ -2730,14 +2704,14 @@ def main():
     import render_torch
 
     with phase("serving"), tempfile.TemporaryDirectory() as out:
-        _build.LAUNCHES.clear()
+        telemetry.LAUNCHES.clear()
         views = render_torch.render_views(
             SCENE, out=out, orbit=N_VIEWS, width=WIDTH, height=HEIGHT,
             focal=FOCAL, sh_band=SH_BAND, depth=True,
             alpha_threshold=ALPHA_THRESHOLD, device=DEVICE,
         )
         torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+        launches = dict(telemetry.LAUNCHES)
         pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
         print(f"[main] launches {launches}; {len(pngs)} PNGs written")
         if launches.get("render_fwd") != N_VIEWS or launches.get("depth_fwd") != N_VIEWS:

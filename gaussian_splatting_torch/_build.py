@@ -15,14 +15,11 @@ is, and editing a probe leaves the package's library alone.  A missing
 Each C function launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; ``check`` raises on a nonzero code.
 
-``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
-where it launches its kernel and nowhere else, so a caller can show which
-kernels a run went through.
+Each wrapper counts its launch in ``telemetry.LAUNCHES``.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -81,8 +78,6 @@ SIGNATURES = {
         "gs_place_probe": (_P, _I, _P, _I, _P, _P),
     },
 }
-
-LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict = {}
 build_seconds = None  # wall time of this process's last build, None if none ran

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from gaussian_splatting_torch import telemetry
 from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.structs import TILE_PX, TileGrid
 
@@ -206,54 +207,75 @@ def build_layout(u, v, conic, z, visible, grid: TileGrid, mh_dist: float,
     reach ALPHA_SKIP.  Without it (golden splat lists) the window is the
     pure mh_dist ellipse.
     """
-    finite, u, v, a, b, c = _sanitised(u, v, conic, z)
-    visible = visible & finite
+    with telemetry.span("gs::layout.cull"):
+        finite, u, v, a, b, c = _sanitised(u, v, conic, z)
+        visible = visible & finite
 
-    if opacity is not None:
-        # cells whose whole tile lies beyond the iso-alpha ellipse
-        # {mh = 2 ln(op / ALPHA_SKIP)} contribute nothing
-        q_max = 2.0 * torch.log(opacity.clamp_min(1e-12) * (1.0 / cc.ALPHA_SKIP))
-        mh_eff = torch.sqrt(q_max.clamp_min(0.0)).clamp_max(mh_dist)
-        visible = visible & (opacity > cc.ALPHA_SKIP)
-    else:
-        mh_eff = mh_dist
+        if opacity is not None:
+            # cells whose whole tile lies beyond the iso-alpha ellipse
+            # {mh = 2 ln(op / ALPHA_SKIP)} contribute nothing
+            q_max = 2.0 * torch.log(opacity.clamp_min(1e-12) * (1.0 / cc.ALPHA_SKIP))
+            mh_eff = torch.sqrt(q_max.clamp_min(0.0)).clamp_max(mh_dist)
+            visible = visible & (opacity > cc.ALPHA_SKIP)
+        else:
+            mh_eff = mh_dist
 
-    obb, _ = _obb_and_radius(u, v, a, b, c, mh_eff)
-    sx, sy, wx, wy = _window(obb, grid.x_tiles, grid.y_tiles)
-    area = torch.where(visible, wx * wy, torch.zeros_like(wx))
-    contributes = area > 0
-    num_visible = int(contributes.sum())
-    truncated = int((area - MAX_WINDOW_CELLS).clamp_min(0).sum())
+        obb, _ = _obb_and_radius(u, v, a, b, c, mh_eff)
+        sx, sy, wx, wy = _window(obb, grid.x_tiles, grid.y_tiles)
+        area = torch.where(visible, wx * wy, torch.zeros_like(wx))
+        contributes = area > 0
+        num_visible = int(contributes.sum())
+        telemetry.count("sync.layout.visible")
+        truncated = int((area - MAX_WINDOW_CELLS).clamp_min(0).sum())
+        telemetry.count("sync.layout.truncated")
 
-    # enumerate each window's first MAX_WINDOW_CELLS cells, x outer / y inner
-    gid_c = torch.nonzero(contributes).squeeze(1)
-    cells = area[gid_c].clamp_max(MAX_WINDOW_CELLS)
-    gid = torch.repeat_interleave(gid_c, cells)
-    first = torch.cumsum(cells, 0) - cells
-    k = torch.arange(gid.numel(), device=gid.device) - torch.repeat_interleave(
-        first, cells
-    )
-    wy_g = wy[gid]
-    tx = sx[gid] + k // wy_g
-    ty = sy[gid] + k % wy_g
-    hit = _split_axis_test(obb[gid], tx, ty)
-    gid, tx, ty = gid[hit], tx[hit], ty[hit]
+    with telemetry.span("gs::layout.enumerate"):
+        # enumerate each window's first MAX_WINDOW_CELLS cells, x outer / y inner
+        gid_c = torch.nonzero(contributes).squeeze(1)
+        telemetry.count("sync.layout.nonzero")
+        cells = area[gid_c].clamp_max(MAX_WINDOW_CELLS)
+        # a repeat_interleave with tensor repeats reads twice: the output's
+        # size, and the check that no repeat is negative
+        gid = torch.repeat_interleave(gid_c, cells)
+        telemetry.count("sync.layout.repeat_gid", 2)
+        first = torch.cumsum(cells, 0) - cells
+        k = torch.arange(gid.numel(), device=gid.device) - torch.repeat_interleave(
+            first, cells
+        )
+        telemetry.count("sync.layout.repeat_first", 2)
+        wy_g = wy[gid]
+        tx = sx[gid] + k // wy_g
+        ty = sy[gid] + k % wy_g
 
-    tile = ty * grid.x_tiles + tx
-    key = (tile << 32) | _depth_bits(z)[gid]
-    key, order = torch.sort(key, stable=True)
-    gaussian_idx = gid[order].to(torch.int32)
-    tile_sorted = key >> 32
-    tile_ids = torch.arange(grid.tile_count + 1, device=key.device,
-                            dtype=torch.int64)
-    starts = torch.searchsorted(tile_sorted, tile_ids).to(torch.int32)
-    counts = starts[1:] - starts[:-1]
+    with telemetry.span("gs::layout.sat"):
+        hit = _split_axis_test(obb[gid], tx, ty)
+        gid = gid[hit]
+        telemetry.count("sync.layout.hit_gid")
+        tx = tx[hit]
+        telemetry.count("sync.layout.hit_tx")
+        ty = ty[hit]
+        telemetry.count("sync.layout.hit_ty")
+
+    with telemetry.span("gs::layout.sort"):
+        tile = ty * grid.x_tiles + tx
+        key = (tile << 32) | _depth_bits(z)[gid]
+        key, order = torch.sort(key, stable=True)
+        gaussian_idx = gid[order].to(torch.int32)
+        tile_sorted = key >> 32
+        tile_ids = torch.arange(grid.tile_count + 1, device=key.device,
+                                dtype=torch.int64)
+        starts = torch.searchsorted(tile_sorted, tile_ids).to(torch.int32)
+        counts = starts[1:] - starts[:-1]
+    num_splats = int(gaussian_idx.numel())
+    telemetry.count("splats", num_splats)
+    telemetry.count("visible", num_visible)
+    telemetry.count("truncated_cells", truncated)
     return SplatLayout(
         gaussian_idx=gaussian_idx,
         tile_starts=starts,
         tile_counts=counts,
         tile_has_output=counts > 0,
-        num_splats=int(gaussian_idx.numel()),
+        num_splats=num_splats,
         num_visible=num_visible,
         truncated=truncated,
     )

@@ -34,6 +34,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from gaussian_splatting_torch import telemetry
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.dataio import colmap
 from gaussian_splatting_torch.dataio.jpeg import SOI as JPEG_SOI
@@ -111,7 +112,8 @@ class SceneData:
 
     def load_image(self, idx: int) -> np.ndarray:
         """uint8 (H, W, 3) RGB."""
-        return read_rgb(self.images[idx].path)
+        with telemetry.span("gs::data.decode"):
+            return read_rgb(self.images[idx].path)
 
 
 def knn_mean_distance(points: np.ndarray, k: int) -> np.ndarray:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gaussian_splatting_torch import _build, timing
+from gaussian_splatting_torch import _build, telemetry, timing
 from gaussian_splatting_torch.experiments import (
     device_label,
     probe_args,
@@ -78,7 +78,7 @@ def scan_cuda(x, chunk: int):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "gs_scan_probe")
-    _build.LAUNCHES["scan_probe"] += 1
+    telemetry.LAUNCHES["scan_probe"] += 1
     return out
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gaussian_splatting_torch import _build, timing
+from gaussian_splatting_torch import _build, telemetry, timing
 from gaussian_splatting_torch.experiments import (
     device_label,
     probe_args,
@@ -84,7 +84,7 @@ def place_cuda(x, off, sub: int):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "gs_place_probe")
-    _build.LAUNCHES["place_probe"] += 1
+    telemetry.LAUNCHES["place_probe"] += 1
     return out
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gaussian_splatting_torch import _build, timing
+from gaussian_splatting_torch import _build, telemetry, timing
 from gaussian_splatting_torch.experiments import (
     device_label,
     probe_args,
@@ -114,7 +114,7 @@ def permute_cuda(vals, dest):
         out.data_ptr(), torch.cuda.current_stream(vals.device).cuda_stream,
     )
     _build.check(err, "gs_permute_probe")
-    _build.LAUNCHES["permute_probe"] += 1
+    telemetry.LAUNCHES["permute_probe"] += 1
     return out
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_splatting_torch import _build
+from gaussian_splatting_torch import _build, telemetry
 from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.ops.render import (
     PLAIN_CHUNK,
@@ -98,7 +98,7 @@ def depth_fwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int,
         out.data_ptr(), torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_depth_fwd")
-    _build.LAUNCHES["depth_fwd"] += 1
+    telemetry.LAUNCHES["depth_fwd"] += 1
     return out
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_splatting_torch import _build
+from gaussian_splatting_torch import _build, telemetry
 from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.structs import TILE_PX
 
@@ -428,7 +428,7 @@ def render_fwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int):
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_render_fwd")
-    _build.LAUNCHES["render_fwd"] += 1
+    telemetry.LAUNCHES["render_fwd"] += 1
     return out
 
 
@@ -459,7 +459,7 @@ def render_bwd_cuda(feat, gaussian_idx, tile_starts, x_tiles: int, raw,
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_render_bwd")
-    _build.LAUNCHES["render_bwd"] += 1
+    telemetry.LAUNCHES["render_bwd"] += 1
     return grad
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from gaussian_splatting_torch import _build
+from gaussian_splatting_torch import _build, telemetry
 from gaussian_splatting_torch import geometry as geo
 from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.ops.reference_impl import image_to_tiles
@@ -173,7 +173,7 @@ def render_sh_fwd_cuda(feat, basis, gaussian_idx, tile_starts, x_tiles: int):
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_render_sh_fwd")
-    _build.LAUNCHES["render_sh_fwd"] += 1
+    telemetry.LAUNCHES["render_sh_fwd"] += 1
     return out
 
 
@@ -206,7 +206,7 @@ def render_sh_bwd_cuda(feat, basis, gaussian_idx, tile_starts, x_tiles: int,
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     _build.check(err, "gs_render_sh_bwd")
-    _build.LAUNCHES["render_sh_bwd"] += 1
+    telemetry.LAUNCHES["render_sh_bwd"] += 1
     return grad
 
 

@@ -25,7 +25,8 @@ Gloo in torch 2.11 runs every collective used here on CUDA tensors
 (all_gather_into_tensor, reduce_scatter_tensor, all_reduce with sum, max
 and min, broadcast; checked on an H100), copying through the host itself,
 so no collective is staged by hand.  Gloo moves no bool tensors, so masks
-travel as uint8.
+travel as uint8.  Each collective runs in a ``gs::comm.<op>`` span
+(``telemetry.py``).
 
 A rank that raises fails the run: ``launch`` stops the other ranks and
 raises that rank's exception in the caller.
@@ -45,6 +46,8 @@ import warnings
 
 import torch
 import torch.distributed as dist
+
+from gaussian_splatting_torch import telemetry
 
 # seconds a collective may wait for a peer before it fails the rank
 TIMEOUT_S = 1800
@@ -135,7 +138,8 @@ def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     xs = x.movedim(dim, 0).contiguous()
     out = xs.new_empty((n * xs.shape[0],) + tuple(xs.shape[1:]))
-    dist.all_gather_into_tensor(out, xs, group=group)
+    with telemetry.span("gs::comm.gather"):
+        dist.all_gather_into_tensor(out, xs, group=group)
     return out.movedim(0, dim)
 
 
@@ -147,14 +151,16 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if xs.shape[0] % n:
         raise ValueError(f"reduce_scatter: {xs.shape[0]} rows do not split into {n} parts")
     out = xs.new_empty((xs.shape[0] // n,) + tuple(xs.shape[1:]))
-    dist.reduce_scatter_tensor(out, xs, op=dist.ReduceOp.SUM, group=group)
+    with telemetry.span("gs::comm.reduce_scatter"):
+        dist.reduce_scatter_tensor(out, xs, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
 
 
 def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """A new tensor: ``op`` (a ``dist.ReduceOp``) of the group's ``x``."""
     out = x.clone()
-    dist.all_reduce(out, op=op, group=group)
+    with telemetry.span("gs::comm.all_reduce"):
+        dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -174,7 +180,8 @@ def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     if x.dtype == torch.bool:
         return broadcast(x.to(torch.uint8), src, group).bool()
     out = x.clone()
-    dist.broadcast(out, src, group=group)
+    with telemetry.span("gs::comm.broadcast"):
+        dist.broadcast(out, src, group=group)
     return out
 
 

@@ -12,9 +12,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from gaussian_splatting_torch import geometry as geo
+from gaussian_splatting_torch import telemetry
 from gaussian_splatting_torch.culling import SplatLayout, build_layout, frustum_visible_rows
 from gaussian_splatting_torch.ops.depth import depth_feature_rows, render_depth_tiles
 from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
@@ -146,26 +146,28 @@ def kernel_inputs(
     _check_inputs(params, alive, camera_T_world, camera)
     n_sh = _active_sh_coeffs(n_sh_band)
     grid = TileGrid(camera.height, camera.width)
-    xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(params, camera_T_world, camera)
-    if uv_offset is not None:
-        u = u + uv_offset[0]
-        v = v + uv_offset[1]
-    visible = frustum_visible_rows(
-        u, v, zc, (camera.width, camera.height),
-        near_thresh, far_thresh, cull_mask_padding,
-    )
-    visible = visible & alive
-    with torch.no_grad(), record_function("gs::layout"):
+    with telemetry.span("gs::render.geometry"):
+        xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(params, camera_T_world, camera)
+        if uv_offset is not None:
+            u = u + uv_offset[0]
+            v = v + uv_offset[1]
+        visible = frustum_visible_rows(
+            u, v, zc, (camera.width, camera.height),
+            near_thresh, far_thresh, cull_mask_padding,
+        )
+        visible = visible & alive
+    with torch.no_grad(), telemetry.span("gs::layout"):
         layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
                               opacity=opacity_v)
 
-    feat, per_pixel_sh = splat_features(params, u, v, conic3, opacity_v, camera_T_world,
-                                        n_sh_band, use_sh_precompute)
-    basis = None
-    if per_pixel_sh:
-        # the basis gets no gradient
-        with torch.no_grad():
-            basis = build_pixel_basis(camera.K, camera_T_world, n_sh, grid)
+    with telemetry.span("gs::render.features"):
+        feat, per_pixel_sh = splat_features(params, u, v, conic3, opacity_v,
+                                            camera_T_world, n_sh_band, use_sh_precompute)
+        basis = None
+        if per_pixel_sh:
+            # the basis gets no gradient
+            with torch.no_grad():
+                basis = build_pixel_basis(camera.K, camera_T_world, n_sh, grid)
     return KernelInputs(feat, basis, layout, grid, visible, u, v)
 
 
@@ -198,27 +200,32 @@ def rasterize(
     if uv_offset is not None and tuple(uv_offset.shape) != (2, params["xyz"].shape[0]):
         raise ValueError(f"uv_offset shape {tuple(uv_offset.shape)} != "
                          f"(2, {params['xyz'].shape[0]})")
-    k = kernel_inputs(
-        params, alive, camera_T_world, camera,
-        near_thresh=near_thresh, far_thresh=far_thresh,
-        cull_mask_padding=cull_mask_padding, mh_dist=mh_dist,
-        n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
-        uv_offset=uv_offset,
-    )
-    if k.basis is None:
-        img_tiles, T = render_tiles(k.feat, k.layout, background_rgb, k.grid.x_tiles)
-    else:
-        img_tiles, T = render_tiles_sh(k.feat, k.basis, k.layout, background_rgb,
-                                       k.grid.x_tiles)
-    return RenderResult(
-        image=tiles_to_image(img_tiles, k.grid),
-        visible=k.visible,
-        uv=torch.stack([k.u, k.v], dim=1),
-        transmittance=T,
-        num_splats=k.layout.num_splats,
-        num_visible=k.layout.num_visible,
-        truncated=k.layout.truncated,
-    )
+    telemetry.count("views")
+    with telemetry.span("gs::render"):
+        k = kernel_inputs(
+            params, alive, camera_T_world, camera,
+            near_thresh=near_thresh, far_thresh=far_thresh,
+            cull_mask_padding=cull_mask_padding, mh_dist=mh_dist,
+            n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
+            uv_offset=uv_offset,
+        )
+        with telemetry.span("gs::render.raster"):
+            if k.basis is None:
+                img_tiles, T = render_tiles(k.feat, k.layout, background_rgb,
+                                            k.grid.x_tiles)
+            else:
+                img_tiles, T = render_tiles_sh(k.feat, k.basis, k.layout, background_rgb,
+                                               k.grid.x_tiles)
+            image = tiles_to_image(img_tiles, k.grid)
+        return RenderResult(
+            image=image,
+            visible=k.visible,
+            uv=torch.stack([k.u, k.v], dim=1),
+            transmittance=T,
+            num_splats=k.layout.num_splats,
+            num_visible=k.layout.num_visible,
+            truncated=k.layout.truncated,
+        )
 
 
 @torch.no_grad()

@@ -9,7 +9,9 @@ subset and the views.  The device work is ``trainer.py``'s.
 Each step's info (0-d tensors) is read on the host ``DRAIN_LAG`` steps
 after the step, in ``_drain``, so the host never waits for the step it
 has just queued; the layout's own size reads (``culling.build_layout``)
-remain.
+remain.  The profile window (``profile_start``, ``profile_steps``) writes
+``trace/trace.json`` and, beside it, ``trace/telemetry.json``: the
+window's counters and span totals (``telemetry.py``).
 
 With ``data_parallel`` * ``model_parallel`` > 1 the runner is one rank of
 a process group of that many ranks (``train_torch.py`` starts them): the
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from gaussian_splatting_torch import checkpoint as ckpt
+from gaussian_splatting_torch import telemetry
 from gaussian_splatting_torch import trainer as T
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.dataio.dataset import SceneData, create_scene
@@ -325,14 +328,17 @@ class TrainingRunner:
         """Read the pending infos until ``upto`` are left, each with one
         copy to the host."""
         keys = ("psnr", "n_alive", "num_splats", "truncated")
-        while len(self._pending) > upto:
-            i, info = self._pending.pop(0)
-            # the parallel steps' counts are device tensors, train_step's ints
-            dev = [k for k in keys if torch.is_tensor(info[k])]
-            read = dict(zip(dev, torch.stack([info[k].double() for k in dev]).tolist()))
-            psnr, n_alive, num_splats, truncated = (read.get(k, info[k]) for k in keys)
-            self._process_info(i, dict(psnr=psnr, n_alive=int(n_alive),
-                                       num_splats=int(num_splats), truncated=int(truncated)))
+        with telemetry.span("gs::run.drain"):
+            while len(self._pending) > upto:
+                i, info = self._pending.pop(0)
+                # the parallel steps' counts are device tensors, train_step's ints
+                dev = [k for k in keys if torch.is_tensor(info[k])]
+                read = dict(zip(dev, torch.stack([info[k].double() for k in dev]).tolist()))
+                telemetry.count("sync.run.drain")
+                psnr, n_alive, num_splats, truncated = (read.get(k, info[k]) for k in keys)
+                self._process_info(i, dict(psnr=psnr, n_alive=int(n_alive),
+                                           num_splats=int(num_splats),
+                                           truncated=int(truncated)))
 
     # -- evaluation ------------------------------------------------------------
 
@@ -358,7 +364,9 @@ class TrainingRunner:
         for idx in self.test_split:
             img, psnr, ssim = self._eval_view(int(idx), band)
             psnrs.append(float(psnr))
+            telemetry.count("sync.run.eval_psnr")
             ssims.append(float(ssim))
+            telemetry.count("sync.run.eval_ssim")
             if save_images:
                 self._save_image(img, f"iter{iteration}_test_image_{idx}.png")
         return float(np.mean(psnrs)), float(np.mean(ssims))
@@ -378,6 +386,7 @@ class TrainingRunner:
             return
         sat = self.config.saturated_pixel_value
         arr = (img.clamp(0, 1) * sat).to(torch.uint8).cpu().numpy()
+        telemetry.count("sync.run.image")
         write_png(os.path.join(self.config.output_dir, name), arr)
 
     def _save_debug_image(self, i: int):
@@ -413,7 +422,8 @@ class TrainingRunner:
             events = scheduled_events(cfg, i)
             if events.eval:
                 self._drain()
-                scores = self._record_eval(i)
+                with telemetry.span("gs::run.eval"):
+                    scores = self._record_eval(i)
                 if scores:
                     self._say(f"\tTEST SPLIT PSNR: {scores[0]:.3f}, SSIM: {scores[1]:.4f}")
 
@@ -437,17 +447,20 @@ class TrainingRunner:
 
             if events.adc:
                 self._drain()
-                self._densify(i)
+                with telemetry.span("gs::run.adc"):
+                    self._densify(i)
 
             if events.reset:
                 self._say("\t\tResetting opacity")
-                self.state = T.reset_opacity(self.state, config=cfg)
+                with telemetry.span("gs::run.reset"):
+                    self.state = T.reset_opacity(self.state, config=cfg)
 
             if events.debug_image:
                 self._save_debug_image(i)
 
             if events.checkpoint:
-                self._save_checkpoint(os.path.join(cfg.output_dir, f"ckpt_iter_{i}.npz"), i)
+                with telemetry.span("gs::run.checkpoint"):
+                    self._save_checkpoint(os.path.join(cfg.output_dir, f"ckpt_iter_{i}.npz"), i)
                 # the run's record rides along with every periodic checkpoint
                 self._write_metrics()
             i += 1
@@ -501,6 +514,7 @@ class TrainingRunner:
                  "clone_deferred", "split_deferred")
         s = dict(zip(names, (int(x) for x in torch.stack(
             [stats[k].to(torch.int64) for k in names]).tolist())))
+        telemetry.count("sync.run.adc")
         self._say("  ADC: deleted {} cloned {} split {} alive {}".format(
             s["n_deleted"], s["n_clone"], s["n_split"], s["n_alive"])
             + (f"  CAP-HIT (free slots exhausted: {s['clone_deferred']} clones "
@@ -530,5 +544,8 @@ class TrainingRunner:
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, "trace.json")
         profiler.export_chrome_trace(path)
-        self._say(f"  trace written to {path} (iters {cfg.profile_start}.."
-                  f"{cfg.profile_start + cfg.profile_steps})")
+        # the window's counters and span totals, beside the trace
+        with open(os.path.join(trace_dir, "telemetry.json"), "w") as f:
+            json.dump(telemetry.window(), f, indent=1)
+        self._say(f"  trace and telemetry.json written to {trace_dir} (iters "
+                  f"{cfg.profile_start}..{cfg.profile_start + cfg.profile_steps})")

@@ -30,9 +30,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
-from gaussian_splatting_torch import optim
+from gaussian_splatting_torch import optim, telemetry
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.geometry import inverse_sigmoid, quaternion_to_rotation
 from gaussian_splatting_torch.losses import eval_psnr_ssim, train_loss
@@ -109,7 +108,7 @@ def value_and_grad(state: TrainState, loss_fn):
     uv_zero = torch.zeros(2, state.alive.shape[0], dtype=torch.float32,
                           device=state.alive.device, requires_grad=True)
     loss, aux = loss_fn(params, uv_zero)
-    with record_function("gs::backward"):
+    with telemetry.span("gs::backward"):
         grads = torch.autograd.grad(
             loss, [params[k] for k in names] + [uv_zero], allow_unused=True)
     gparams = {k: g if g is not None else torch.zeros_like(params[k])
@@ -124,10 +123,9 @@ def camera_loss(state, gt_image, camera_K, camera_T_world, background_rgb, *,
     gt = float_image(gt_image, config)
 
     def loss_fn(params, uv_offset):
-        with record_function("gs::render"):
-            res = _render(params, state, camera_K, camera_T_world, config,
-                          camera_hw, n_sh_band, background_rgb, uv_offset=uv_offset)
-        with record_function("gs::loss"):
+        res = _render(params, state, camera_K, camera_T_world, config,
+                      camera_hw, n_sh_band, background_rgb, uv_offset=uv_offset)
+        with telemetry.span("gs::loss"):
             loss, psnr = train_loss(res.image, gt, config.ssim_frac)
         return loss, (psnr, res)
 
@@ -156,19 +154,21 @@ def train_step(
     info holds loss, psnr (0-d tensors), num_splats, num_visible,
     truncated (ints) and n_alive (0-d tensor).
     """
-    loss, (psnr, res), gparams, g_uv = camera_loss(
-        state, gt_image, camera_K, camera_T_world, background_rgb,
-        config=config, camera_hw=camera_hw, n_sh_band=n_sh_band)
-    with record_function("gs::adam"):  # with the step skip and accumulators
-        ok = step_ok(loss, gparams)
-        new_state = adam_step(state, gparams, ok, config)
-        new_state = accumulate(new_state, uv_grad_rows(g_uv, camera_K, res.visible),
-                               gparams["xyz"].abs(), res.visible.to(torch.int32), ok)
-    info = dict(
-        loss=loss.detach(), psnr=psnr.detach(), num_splats=res.num_splats,
-        num_visible=res.num_visible, truncated=res.truncated,
-        n_alive=state.alive.sum(),
-    )
+    telemetry.count("steps")
+    with telemetry.span("gs::step"):
+        loss, (psnr, res), gparams, g_uv = camera_loss(
+            state, gt_image, camera_K, camera_T_world, background_rgb,
+            config=config, camera_hw=camera_hw, n_sh_band=n_sh_band)
+        with telemetry.span("gs::adam"):  # with the step skip and accumulators
+            ok = step_ok(loss, gparams)
+            new_state = adam_step(state, gparams, ok, config)
+            new_state = accumulate(new_state, uv_grad_rows(g_uv, camera_K, res.visible),
+                                   gparams["xyz"].abs(), res.visible.to(torch.int32), ok)
+        info = dict(
+            loss=loss.detach(), psnr=psnr.detach(), num_splats=res.num_splats,
+            num_visible=res.num_visible, truncated=res.truncated,
+            n_alive=state.alive.sum(),
+        )
     return new_state, info
 
 

@@ -17,7 +17,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from gaussian_splatting_torch import _build
+from gaussian_splatting_torch import _build, telemetry
 from gaussian_splatting_torch.experiments import cumsum_bench as tcs
 from gaussian_splatting_torch.experiments import dma_scatter_bench as tds
 from gaussian_splatting_torch.experiments import kernel_bench as tkb
@@ -162,9 +162,9 @@ def test_dispatch_runs_plain_on_cpu(name):
     """A CPU tensor goes to the plain version and launches nothing; the
     kernel's wrapper refuses it rather than falling back."""
     dispatch, plain, _, args, _, counter = _probe_case(name)
-    before = dict(_build.LAUNCHES)
+    before = dict(telemetry.LAUNCHES)
     assert torch.equal(dispatch(*args), plain(*args))
-    assert dict(_build.LAUNCHES) == before and counter not in before
+    assert dict(telemetry.LAUNCHES) == before and counter not in before
     cuda = {"permute": tpp.permute_cuda, "scan": tcs.scan_cuda,
             "place": tds.place_cuda}[name]
     with pytest.raises(ValueError, match="CUDA"):
@@ -186,10 +186,10 @@ def test_kernel_bench_main_runs_on_cpu(capsys):
     """The twin of ``experiments/kernel_bench.py`` on the CPU: B1 and B2's
     plain versions at the cut size (12 tiles of 64 splats, one gaussian a
     splat), each held to itself through the dispatcher, no launch."""
-    before = dict(_build.LAUNCHES)
+    before = dict(telemetry.LAUNCHES)
     res = tkb.main(["--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert dict(_build.LAUNCHES) == before
+    assert dict(telemetry.LAUNCHES) == before
     assert (res["tiles"], res["splats"]) == (12, 12 * tkb.DEPTH_CPU)
     assert len(out) == 3 and out[1].startswith("B1 ") and out[2].startswith("B2, ")
     assert "share not measured on the CPU" in out[1]
