@@ -27,6 +27,15 @@ counters, that each went through its kernels:
   iteration 1000, checked for its slot accounting, zero moments and
   accumulators and the split's law, 4 steps, trainer.reset_opacity, 4
   steps (kernels B1, B2);
+- training, Scaffold-GS ("[scaffold]"): tests/test_torch_scaffold.py's
+  small scene decoded, rendered and trained 3 steps through
+  trainer.train_step on the card, each against the plain reference
+  tests/torch_scaffold_reference.py (the decoded rows, the image, every
+  leaf's gradient, the leaves after each step); then anchors at the
+  trained scene's 63,879 positions at 1296x840, decoded against the
+  reference's decode and trained 8 steps on 2 views (kernels B1, B2 and
+  the Adam step once each a step), checked for finite leaves and a falling
+  loss on each view, with the decode's device ms and the step's time;
 - the TPU probes E1-E3 (gaussian_splatting_torch/experiments): each
   probe's full sweep, every point's kernel against its plain version,
   with kernel, plain and library-call times and the bound; then
@@ -897,6 +906,174 @@ def training_phase(setup, cfg, steps, tag, kernels):
     profile_step(lambda: trainer.train_step(state, gts[1], K, poses[1], bgs[1], **kw),
                  median_ms, tag)
     return launches, median_ms
+
+
+def _scaffold_check_step(tag, i, state, start, want, g_want, loss, want_loss):
+    """The program's state after step i against the reference's: the loss
+    within 1e-5; after the first step each leaf within 2e-4 of its rate
+    beyond what its gradient's gap explains (tests/test_torch_scaffold.py's
+    rule), after later ones each leaf's change in norm within 1e-3 (the
+    benchmark's step_gap)."""
+    from gaussian_splatting_torch import optim, scaffold
+
+    def flat(x):
+        return scaffold.pack_mlp(*x) if isinstance(x, list) else x
+
+    worst = {}
+    for k in scaffold.LEAVES:
+        if i == 0:
+            g = state.opt_state.mu[k] / (1 - optim.B1)
+            explained = 2 * (g - flat(g_want[k])).abs() / (flat(g_want[k]).abs() + optim.EPS)
+            gap = (state.params[k] - flat(want[k])).abs() / scaffold.LEARNING_RATES[k]
+            worst[k] = float((gap - explained).max())
+        else:
+            moved = float((flat(want[k]) - start[k]).norm())
+            worst[k] = abs(float((state.params[k] - start[k]).norm()) - moved) / moved
+    loss_gap = abs(loss - want_loss) / abs(want_loss)
+    print(f"[{tag}] step {i}: loss {loss:.7f} (reference {want_loss:.7f}, gap "
+          f"{loss_gap:.2e}); worst leaf gap {max(worst.values()):.2e} "
+          f"({max(worst, key=worst.get)}; {'of its rate' if i == 0 else 'of its change'})")
+    if loss_gap > 1e-5 or max(worst.values()) > (2e-4 if i == 0 else 1e-3):
+        raise AssertionError(f"{tag} step {i}: loss gap {loss_gap}, leaf gaps {worst}")
+
+
+def scaffold_phase(smi):
+    """Scaffold-GS on the card (the module docstring's "[scaffold]").
+    Returns the launches of the larger scene's steps."""
+    import torch
+
+    from gaussian_splatting_torch import scaffold, telemetry, trainer
+    from gaussian_splatting_torch.config import SplatConfig
+    from gaussian_splatting_torch.structs import Camera
+    from tests import test_torch_scaffold as ts
+    from tests import torch_scaffold_reference as ref
+
+    dev = torch.device(DEVICE)
+    tag = "scaffold"
+    cfg = SplatConfig()
+    kw = dict(near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+              cull_mask_padding=cfg.cull_mask_padding)
+
+    # 1. the tests' small scene: decode, image, gradients and 3 steps
+    sc, pose, K = ts._scene()
+    sc, pose, K = sc.to(dev), pose.to(dev), K.to(dev)
+    bg = ts.BG.to(dev)
+    with torch.no_grad():
+        rows = scaffold.decode(sc.params(), sc.anchor, sc.alive, pose, Camera(K, ts.W, ts.H),
+                               **kw)
+        g = ref.decode(ts._ref_params(sc), sc.anchor, sc.alive, pose, K, ts.W, ts.H,
+                       ts.RCFG["near"], ts.RCFG["far"], ts.RCFG["padding"])
+        xyz = rows["xyz"][rows["opacity"] > 0]
+        row_err = float((xyz - g["xyz"]).abs().max() / g["xyz"].abs().max())
+        res, _ = scaffold.render(sc.params(), sc.anchor, sc.alive, pose, Camera(K, ts.W, ts.H),
+                                 mh_dist=cfg.mh_dist, background_rgb=bg, **kw)
+        img = ref.render(g, pose, K, ts.W, ts.H, bg, near=ts.RCFG["near"], far=ts.RCFG["far"],
+                         padding=ts.RCFG["padding"], mh_dist=ts.RCFG["mh_dist"])
+        img_err = float((res.image - img).abs().max())
+    print(f"[{tag}] small scene on the card: {g['opacity'].shape[0]} neural gaussians; "
+          f"decoded xyz rel err {row_err:.2e}, image max abs err {img_err:.2e}")
+    if row_err > ts.ROW_REL_TOL or img_err > ts.IMAGE_ATOL:
+        raise AssertionError(f"{tag}: decode {row_err} or image {img_err} off the reference")
+    gts = [ts._gt(seed).to(dev) for seed in (1, 2, 3)]
+    state = trainer.init_train_state(sc, cfg)
+    p = ts._ref_params(sc)
+    mu = {k: [torch.zeros_like(t) for t in v] if isinstance(v, list) else torch.zeros_like(v)
+          for k, v in p.items()}
+    nu = {k: [torch.zeros_like(t) for t in v] if isinstance(v, list) else torch.zeros_like(v)
+          for k, v in p.items()}
+    start = {k: v.clone() for k, v in state.params.items()}
+    for i, gt in enumerate(gts):
+        state, info = trainer.train_step(state, gt, K, pose, bg, config=cfg,
+                                         camera_hw=(ts.H, ts.W), n_sh_band=0)
+        loss, grads, _ = ref.grads(p, sc.anchor, sc.alive, pose, K, gt, bg, ts.RCFG)
+        p, mu, nu = ref.adam_step(p, grads, mu, nu, i + 1)
+        _scaffold_check_step(tag, i, state, start, p, grads, float(info["loss"]), float(loss))
+
+    # 2. anchors at the trained scene's positions, at 1296x840
+    scene, cam, pose0 = scene_view(dev)
+    xyz = scene.xyz[scene.alive].detach()
+    n = xyz.shape[0]
+    gen = torch.Generator(dev).manual_seed(19)
+    nn_sq = torch.empty(n, device=dev)
+    for i in range(0, n, 4096):
+        d = torch.cdist(xyz[i:i + 4096], xyz, compute_mode="donot_use_mm_for_euclid_dist")
+        nn_sq[i:i + 4096] = d.topk(4, largest=False).values[:, 1:].square().mean(1)
+    cap = 1 << 16
+    pad = cap - n
+
+    def slots(t):
+        return torch.cat([t, torch.zeros((pad,) + tuple(t.shape[1:]), device=dev)])
+
+    torch.manual_seed(19)
+    big = scaffold.ScaffoldScene(
+        slots(xyz), slots(torch.rand(n, scaffold.N_OFFSETS, 3, generator=gen, device=dev) * 2 - 1),
+        slots(torch.randn(n, scaffold.FEAT_DIM, generator=gen, device=dev)),
+        slots(torch.log(nn_sq.clamp_min(1e-7).sqrt())[:, None].repeat(1, 6)),
+        torch.arange(cap, device=dev) < n)
+    import render_torch
+
+    poses = [torch.from_numpy(q).to(dev)
+             for q in render_torch.orbit_poses(xyz.cpu().numpy(), N_VIEWS)[:2]]
+    with torch.no_grad():
+        rows = scaffold.decode(big.params(), big.anchor, big.alive, poses[0], cam, **kw)
+        p_big = ts._ref_params(big)
+        g = ref.decode(p_big, big.anchor, big.alive, poses[0], cam.K, WIDTH, HEIGHT,
+                       cfg.near_thresh, cfg.far_thresh, float(cfg.cull_mask_padding))
+        shown = rows["opacity"] > 0
+        rows = {k: v[shown] for k, v in rows.items()}
+        rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in (
+            (rows["xyz"], g["xyz"]), (rows["opacity"], g["opacity"]), (rows["rgb"], g["colour"]),
+            (torch.exp(rows["scale"]), g["scaling"])))
+        targets = []
+        for q in poses:  # the unperturbed scene as the port renders it, on black
+            r, _ = scaffold.render(big.params(), big.anchor, big.alive, q, cam,
+                                   mh_dist=cfg.mh_dist, background_rgb=torch.zeros(3, device=dev),
+                                   **kw)
+            targets.append(r.image.clamp(0, 1))
+    print(f"[{tag}] {n} anchors in {cap} slots at {WIDTH}x{HEIGHT}: view 0 decodes "
+          f"{int(shown.numel()) // scaffold.N_OFFSETS} anchors into {shown.numel()} rows, "
+          f"{rows['opacity'].shape[0]} of opacity > 0; decoded rows' worst rel err against "
+          f"the reference {rel:.2e}")
+    if rel > 1e-5 or rows["opacity"].shape[0] != g["opacity"].shape[0]:
+        raise AssertionError(f"{tag}: the large decode is off the reference ({rel})")
+    with torch.no_grad():
+        big.anchor_feat.add_(0.3 * torch.randn(big.anchor_feat.shape, generator=gen, device=dev))
+    state = trainer.init_train_state(big, cfg)
+    black = torch.zeros(3, device=dev)
+    telemetry.LAUNCHES.clear()
+    losses, step_ms = [], []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = trainer.train_step(state, targets[i % 2], cam.K, poses[i % 2], black,
+                                         config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(info["loss"]))
+        print(f"[{tag}] step {i} view {i % 2}: loss {losses[-1]:.6f} rows {info['neural']} "
+              f"splats {info['num_splats']} ({step_ms[-1]:.2f} ms)")
+    launches = dict(telemetry.LAUNCHES)
+    want = {"render_fwd": 8, "render_bwd": 8, "adam_step": 8}
+    if launches != want or int(state.opt_state.count) != 8:
+        raise AssertionError(f"{tag}: expected launches {want} and 8 steps, got {launches}, "
+                             f"count {int(state.opt_state.count)}")
+    for k, v in state.params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag}: leaf {k} not finite")
+    for v in range(2):
+        if not losses[6 + v] < losses[v]:
+            raise AssertionError(f"{tag}: view {v}'s loss did not fall: {losses}")
+    with telemetry.recording():
+        state, _ = trainer.train_step(state, targets[0], cam.K, poses[0], black, config=cfg,
+                                      camera_hw=(HEIGHT, WIDTH), n_sh_band=0)
+        torch.cuda.synchronize()
+    c = telemetry.window()["counters"]
+    print(f"[time] {tag} step at {WIDTH}x{HEIGHT}, {n} anchors: median "
+          f"{statistics.median(step_ms[2:]):.3f} ms (host clock, steps 2-7); decode "
+          f"{c['decode_us'] / 1e3:.3f} device ms forward and backward, {c['anchors']} anchors, "
+          f"{c['neural']} rows, {sum(v for k, v in c.items() if k.startswith('sync.'))}"
+          f" blocking reads ({smi})")
+    return launches
 
 
 def dc_steps(state, setup, cfg, first, steps, tag):
@@ -2882,6 +3059,9 @@ def main():
     with phase("training, ADC and opacity reset"):
         adc_launches, adc_ms, reset_ms = adc_phase(setup, cfg, smi)
 
+    with phase("training, Scaffold-GS"):
+        scaffold_launches = scaffold_phase(smi)
+
     with phase("backward timings and bounds"):
         times["render_bwd"] = time_kernel("render_bwd", render_bwd_cuda,
                                           render_bwd_plain, s_bwd, smi)
@@ -2926,8 +3106,9 @@ def main():
               "gaussian_splatting_torch/csrc/render_fwd.cu",
               "gaussian_splatting_tpu/ops/render.py:525",
               launches["render_fwd"] + train_launches["render_fwd"]
-              + adc_launches["render_fwd"] + refscale_launches["render_fwd"]
-              + capture_launches["render_fwd"] + mgpu_launches["render_fwd"], img_err,
+              + adc_launches["render_fwd"] + scaffold_launches["render_fwd"]
+              + refscale_launches["render_fwd"] + capture_launches["render_fwd"]
+              + mgpu_launches["render_fwd"], img_err,
               kernel_bench_point=at_bench("B1"),
               pack="gs_pack_fwd_rows launched first, bitwise equal to pack_fwd_rows_plain",
               tile_order="gs_tile_order launched second, equal to tile_order_plain up to ties"),
@@ -2941,8 +3122,8 @@ def main():
               "gaussian_splatting_torch/csrc/render_bwd.cu",
               "gaussian_splatting_tpu/ops/render.py:635",
               train_launches["render_bwd"] + adc_launches["render_bwd"]
-              + refscale_launches["render_bwd"] + capture_launches["render_bwd"]
-              + mgpu_launches["render_bwd"], b2_abs,
+              + scaffold_launches["render_bwd"] + refscale_launches["render_bwd"]
+              + capture_launches["render_bwd"] + mgpu_launches["render_bwd"], b2_abs,
               max_rel_err_per_row=b2_rel, run_to_run_spread=b2_spread,
               kernel_bench_point=at_bench("B2")),
         entry("render_sh_fwd", "render_sh_fwd (B3, per-pixel SH forward)",
@@ -2961,7 +3142,8 @@ def main():
     ]
     adam_entry["launches"] += sum(
         part.get("adam_step", 0) for part in (
-            train_launches, sh_train_launches, adc_launches, refscale_launches,
+            train_launches, sh_train_launches, adc_launches, scaffold_launches,
+            refscale_launches,
             capture_launches, mgpu_launches))
     kernels.append(adam_entry)
     for key, label, source, replaces, point in PROBES:

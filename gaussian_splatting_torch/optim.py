@@ -69,26 +69,36 @@ def bias_corrections(count: torch.Tensor):
     return count, bc1, bc2
 
 
-def update(grads: dict, state: AdamState, config):
+def leaf_rates(config, rates: Optional[dict] = None):
+    """(multiplier by leaf name, base rate): ``config``'s multipliers of
+    ``config.base_lr``, or, where ``rates`` is given, each leaf's own
+    learning rate over a base of 1 (``config`` is then not read)."""
+    if rates is None:
+        return lr_multipliers(config), config.base_lr
+    return rates, 1.0
+
+
+def update(grads: dict, state: AdamState, config, rates: Optional[dict] = None):
     """One Adam step: (updates to add to the params, new state).  Nothing
-    is written in place."""
+    is written in place.  The rates are ``leaf_rates(config, rates)``."""
     count, bc1, bc2 = bias_corrections(state.count)
-    mult = lr_multipliers(config)
+    mult, base_lr = leaf_rates(config, rates)
     mu, nu, updates = {}, {}, {}
     for k, g in grads.items():
         mu[k] = (1 - B1) * g + B1 * state.mu[k]
         nu[k] = (1 - B2) * (g * g) + B2 * state.nu[k]
         u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + EPS)
-        updates[k] = (u * mult[k]) * -config.base_lr
+        updates[k] = (u * mult[k]) * -base_lr
     return updates, AdamState(count=count, mu=mu, nu=nu)
 
 
-def adam_step_plain(params: dict, grads: dict, state: AdamState, ok, config):
+def adam_step_plain(params: dict, grads: dict, state: AdamState, ok, config,
+                    rates: Optional[dict] = None):
     """A training step's Adam where ``ok`` (a 0-d bool) holds, and params
     and state unchanged where it does not: (new params, new state).  The
     plain PyTorch version of ``adam_step_cuda``; nothing is written in
     place."""
-    updates, new = update(grads, state, config)
+    updates, new = update(grads, state, config, rates)
     return (
         {k: torch.where(ok, params[k] + updates[k], params[k]) for k in params},
         AdamState(
@@ -187,7 +197,8 @@ def check_adam_args(params: dict, grads: dict, state: AdamState, ok) -> None:
         raise ValueError(f"adam_step: ok on {ok.device}, count on {dev}")
 
 
-def adam_step_cuda(params: dict, grads: dict, state: AdamState, ok, config):
+def adam_step_cuda(params: dict, grads: dict, state: AdamState, ok, config,
+                   rates: Optional[dict] = None):
     """``adam_step_plain`` in one launch of ``csrc/adam.cu`` on the current
     stream: (new params, new state), new tensors, bit for bit the plain
     version's.  Reads ``ok`` and the bias corrections on the device; no
@@ -197,7 +208,7 @@ def adam_step_cuda(params: dict, grads: dict, state: AdamState, ok, config):
                          f"{state.count.device}")
     check_adam_args(params, grads, state, ok)
     _, bc1, bc2 = bias_corrections(state.count)
-    mult = lr_multipliers(config)
+    mult, base_lr = leaf_rates(config, rates)
     out = {k: [torch.empty(v.shape, dtype=torch.float32, device=v.device) for _ in range(3)]
            for k, v in params.items()}
     count = torch.empty_like(state.count)
@@ -206,7 +217,7 @@ def adam_step_cuda(params: dict, grads: dict, state: AdamState, ok, config):
                  (p.data_ptr(), grads[k].data_ptr(), state.mu[k].data_ptr(),
                   state.nu[k].data_ptr(), *(t.data_ptr() for t in out[k])), mult[k])
         for k, p in params.items()])
-    hyper = np.array([1 - B1, B1, 1 - B2, B2, EPS, -config.base_lr], dtype=np.float32)
+    hyper = np.array([1 - B1, B1, 1 - B2, B2, EPS, -base_lr], dtype=np.float32)
     err = _build.library().gs_adam_step(
         ptrs.ctypes.data, dims.ctypes.data, mults.ctypes.data, len(mults), n_chunks,
         hyper.ctypes.data, bc1.data_ptr(), bc2.data_ptr(), ok.data_ptr(),

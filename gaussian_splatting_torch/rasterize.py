@@ -73,13 +73,20 @@ def _check_inputs(params: dict, alive, camera_T_world, camera: Camera):
             raise ValueError(f"inputs on {t.device} and {dev}: move them to one device")
 
 
-def _camera_rows(params, camera_T_world, camera):
-    """Camera-frame centres, projections and conics of every gaussian."""
-    xyzT = params["xyz"].T
+def _camera_geometry(rows, camera_T_world, camera):
+    """Camera-frame centres, projections and conics of every gaussian of
+    ``rows`` (xyz, quaternion, log-space scale)."""
+    xyzT = rows["xyz"].T
     xc, yc, zc = geo.transform_rows(xyzT[0], xyzT[1], xyzT[2], camera_T_world)
     u, v = geo.project_rows(xc, yc, zc, camera.K)
-    sig6 = geo.sigma_world_rows(params["quaternion"], params["scale"])
+    sig6 = geo.sigma_world_rows(rows["quaternion"], rows["scale"])
     conic3 = geo.conic_rows(sig6, xc, yc, zc, camera.K, camera_T_world)
+    return xc, yc, zc, u, v, conic3
+
+
+def _camera_rows(params, camera_T_world, camera):
+    """``_camera_geometry`` and the activated opacity of every gaussian."""
+    xc, yc, zc, u, v, conic3 = _camera_geometry(params, camera_T_world, camera)
     opacity_v = torch.sigmoid(params["opacity"][:, 0])
     return xc, yc, zc, u, v, conic3, opacity_v
 
@@ -209,23 +216,97 @@ def rasterize(
             n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
             uv_offset=uv_offset,
         )
-        with telemetry.span("gs::render.raster"):
-            if k.basis is None:
-                img_tiles, T = render_tiles(k.feat, k.layout, background_rgb,
-                                            k.grid.x_tiles)
-            else:
-                img_tiles, T = render_tiles_sh(k.feat, k.basis, k.layout, background_rgb,
-                                               k.grid.x_tiles)
-            image = tiles_to_image(img_tiles, k.grid)
-        return RenderResult(
-            image=image,
-            visible=k.visible,
-            uv=torch.stack([k.u, k.v], dim=1),
-            transmittance=T,
-            num_splats=k.layout.num_splats,
-            num_visible=k.layout.num_visible,
-            truncated=k.layout.truncated,
-        )
+        return _raster(k, background_rgb)
+
+
+def _raster(k: KernelInputs, background_rgb) -> RenderResult:
+    """The kernels' image of ``k``: B1/B2 on DC features, B3/B4 with a
+    per-pixel basis."""
+    with telemetry.span("gs::render.raster"):
+        if k.basis is None:
+            img_tiles, T = render_tiles(k.feat, k.layout, background_rgb, k.grid.x_tiles)
+        else:
+            img_tiles, T = render_tiles_sh(k.feat, k.basis, k.layout, background_rgb,
+                                           k.grid.x_tiles)
+        image = tiles_to_image(img_tiles, k.grid)
+    return RenderResult(
+        image=image,
+        visible=k.visible,
+        uv=torch.stack([k.u, k.v], dim=1),
+        transmittance=T,
+        num_splats=k.layout.num_splats,
+        num_visible=k.layout.num_visible,
+        truncated=k.layout.truncated,
+    )
+
+
+ROW_KEYS = dict(xyz=3, scale=3, quaternion=4, rgb=3)
+
+
+def rows_kernel_inputs(
+    rows: dict,
+    camera_T_world: torch.Tensor,
+    camera: Camera,
+    *,
+    near_thresh: float,
+    far_thresh: float,
+    cull_mask_padding: float,
+    mh_dist: float,
+) -> KernelInputs:
+    """``kernel_inputs`` of gaussian rows that carry their activated opacity
+    and their colour, as a Scaffold-GS decode gives them (``scaffold.
+    decode``): ``xyz``, ``scale`` (log-space), ``quaternion`` (normalised
+    on use), ``rgb`` (direct colour, not SH coefficients), each (N, C), and
+    ``opacity`` (N,), activated: a row of opacity <= 1/255 is never
+    rendered (the layout's opacity-aware window).  The DC path at band 0,
+    with the colour taken as it is: no sigmoid, no SH_0."""
+    n = rows["opacity"].shape
+    if len(n) != 1 or any(tuple(rows[k].shape) != (n[0], c) for k, c in ROW_KEYS.items()):
+        raise ValueError("rows must hold opacity (N,) and xyz, scale, quaternion, rgb "
+                         f"(N, 3/3/4/3); got { {k: tuple(v.shape) for k, v in rows.items()} }")
+    grid = TileGrid(camera.height, camera.width)
+    # The layout runs on geometry that keeps no graph, and the geometry is
+    # formed again for the gradient after it: the layout's temporaries grow
+    # with the splats, which move as the decoded opacities train, and on top
+    # of the graph's saved tensors they set a step's memory peak.
+    with torch.no_grad():
+        with telemetry.span("gs::render.geometry"):
+            _, _, zc, u, v, conic3 = _camera_geometry(rows, camera_T_world, camera)
+            visible = frustum_visible_rows(
+                u, v, zc, (camera.width, camera.height),
+                near_thresh, far_thresh, cull_mask_padding,
+            )
+        with telemetry.span("gs::layout"):
+            layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
+                                  opacity=rows["opacity"])
+    with telemetry.span("gs::render.geometry"):
+        _, _, _, u, v, conic3 = _camera_geometry(rows, camera_T_world, camera)
+    with telemetry.span("gs::render.features"):
+        rgb = rows["rgb"]
+        feat = splat_feature_rows(u, v, rows["opacity"], *conic3,
+                                  rgb[:, 0], rgb[:, 1], rgb[:, 2])
+    return KernelInputs(feat, None, layout, grid, visible, u, v)
+
+
+def rasterize_rows(
+    rows: dict,
+    camera_T_world: torch.Tensor,
+    camera: Camera,
+    *,
+    near_thresh: float,
+    far_thresh: float,
+    cull_mask_padding: float,
+    mh_dist: float,
+    background_rgb: torch.Tensor,
+) -> RenderResult:
+    """Render gaussian rows with activated opacity and direct colour
+    (``rows_kernel_inputs``) through the layout and B1/B2, as ``rasterize``
+    renders a scene at band 0.  It opens no ``gs::render`` span and counts
+    no view: its caller, ``scaffold.render``, does both around its decode."""
+    k = rows_kernel_inputs(rows, camera_T_world, camera, near_thresh=near_thresh,
+                           far_thresh=far_thresh, cull_mask_padding=cull_mask_padding,
+                           mh_dist=mh_dist)
+    return _raster(k, background_rgb)
 
 
 @torch.no_grad()

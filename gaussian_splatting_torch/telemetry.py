@@ -26,7 +26,16 @@ Counters the program keeps (each added where it happens):
 
 - ``sync.<site>``: 1 at each blocking device-to-host read;
 - ``splats``, ``visible``, ``truncated_cells``: each layout's sizes;
-- ``steps``: ``trainer.train_step`` calls; ``views``: ``rasterize`` calls.
+- ``steps``: ``trainer.train_step`` calls; ``views``: ``rasterize`` calls
+  and Scaffold-GS renders (``scaffold.render``);
+- ``anchors``, ``neural``: the anchors a Scaffold-GS view decodes and the
+  neural gaussians' rows it hands the layout (``scaffold.decode``);
+- ``decode_us``: device microseconds of the Scaffold-GS decode, forward
+  and backward, from CUDA events (``device_timer``).
+
+A ``device_timer`` counter is read from CUDA events recorded on the
+stream, never inside a step: the window resolves the events that have run
+when it closes, and ``window()`` waits for the rest.
 
 ``LAUNCHES`` counts kernel launches by kernel name, always, recording or
 not: each wrapper adds one where it launches its kernel and nowhere else,
@@ -39,6 +48,7 @@ import collections
 import contextlib
 import time
 
+import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 from torch.profiler import record_function
@@ -53,7 +63,7 @@ class _Window:
     host nanoseconds; opened and closed on ``time.time_ns()``, the clock
     of the profiler's events."""
 
-    __slots__ = ("counters", "calls", "ns", "opened_ns", "closed_ns")
+    __slots__ = ("counters", "calls", "ns", "opened_ns", "closed_ns", "pending")
 
     def __init__(self):
         self.counters = collections.Counter()
@@ -61,6 +71,20 @@ class _Window:
         self.ns = collections.Counter()
         self.opened_ns = time.time_ns()
         self.closed_ns = None
+        self.pending = []  # (counter, start event, end event) of device timers
+
+    def resolve(self, wait: bool):
+        """Add each pending device interval whose end event has run to its
+        counter, in microseconds; with ``wait``, wait for the rest first."""
+        left = []
+        for name, start, end in self.pending:
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                left.append((name, start, end))
+                continue
+            self.counters[name] += start.elapsed_time(end) * 1e3
+        self.pending = left
 
     def as_dict(self) -> dict:
         return dict(counters=dict(self.counters),
@@ -90,6 +114,7 @@ def _close():
     global _open
     if _open is not None:
         _open.closed_ns = time.time_ns()
+        _open.resolve(wait=False)
         _open = None
 
 
@@ -143,6 +168,37 @@ def count(name: str, n: int = 1) -> None:
         w.counters[name] += n
 
 
+class _DeviceTimer:
+    """Device intervals on the current CUDA stream, each from a ``start()``
+    to the next ``stop()``, for the window's counter ``name``."""
+
+    __slots__ = ("name", "window", "started")
+
+    def __init__(self, name, window):
+        self.name, self.window, self.started = name, window, None
+
+    def start(self):
+        self.started = torch.cuda.Event(enable_timing=True)
+        self.started.record()
+
+    def stop(self):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.window.pending.append((self.name, self.started, end))
+
+
+def device_timer(name: str, device):
+    """A timer whose intervals add their device microseconds to the counter
+    ``name``, or None: while recording is off, or off a CUDA ``device``.
+    Its events are read when the window closes (those that have run) or
+    by ``window()``."""
+    if device.type != "cuda" or not (
+            _forced or _profiler._is_profiler_enabled or _open is not None):
+        return None
+    w = _window()
+    return None if w is None else _DeviceTimer(name, w)
+
+
 @contextlib.contextmanager
 def recording():
     """Record inside the block, with no profiler: a new window opens at the
@@ -163,5 +219,8 @@ def window():
     """The newest window as a dict (``counters``; ``spans``: name ->
     ``calls``, ``host_s``; ``opened_ns``, ``closed_ns`` on
     ``time.time_ns()``, ``closed_ns`` None while it is open), or None if
-    nothing has been recorded."""
-    return None if _last is None else _last.as_dict()
+    nothing has been recorded.  Waits for the window's device timers."""
+    if _last is None:
+        return None
+    _last.resolve(wait=True)
+    return _last.as_dict()

@@ -21,6 +21,15 @@ slot order takes the k-th free slot, which is the pairing the JAX
 package's batched drains (``lax.while_loop`` over batches of ``max_new``)
 produce.
 
+A Scaffold-GS scene (``scaffold.ScaffoldScene``) trains through the same
+``train_step``: ``init_train_state`` gives it a ``ScaffoldTrainState``, and
+its step decodes the anchors into neural gaussians (``scaffold.render``),
+renders them through the layout and B1/B2, adds the source's volume term
+to the loss, differentiates through the decode into the anchor leaves and
+the MLPs, and takes the fused Adam step over its six leaves at the source's
+initial rates.  It keeps no densification statistics: the source's anchor growing
+is not ported.
+
 Not ported here: ``train_steps_scan`` (the JAX package's multi-step
 dispatch for the TPU).
 """
@@ -31,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from gaussian_splatting_torch import optim, telemetry
+from gaussian_splatting_torch import optim, scaffold, telemetry
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.geometry import inverse_sigmoid, quaternion_to_rotation
 from gaussian_splatting_torch.losses import eval_psnr_ssim, train_loss
@@ -48,11 +57,23 @@ class TrainState(NamedTuple):
     grad_accum_count: torch.Tensor  # (C,) int32
 
 
-def init_train_state(scene: GaussianScene, config: SplatConfig) -> TrainState:
-    """A fresh state: the scene's parameters, zero Adam moments and zero
-    accumulators."""
+class ScaffoldTrainState(NamedTuple):
+    params: dict  # the six leaves by name (scaffold.LEAVES)
+    anchor: torch.Tensor  # (C, 3) frozen anchor positions
+    alive: torch.Tensor  # (C,) bool
+    opt_state: optim.AdamState
+
+
+def init_train_state(scene: GaussianScene | scaffold.ScaffoldScene,
+                     config: SplatConfig):
+    """A fresh state: the scene's parameters, zero Adam moments and, for a
+    ``GaussianScene``, zero accumulators (a ``TrainState``); a
+    ``scaffold.ScaffoldScene`` gives a ``ScaffoldTrainState``."""
     del config  # the optimizer's hyper-parameters are read at each step
     params = {k: v.detach().clone() for k, v in scene.params().items()}
+    if isinstance(scene, scaffold.ScaffoldScene):
+        return ScaffoldTrainState(params=params, anchor=scene.anchor.clone(),
+                                  alive=scene.alive.clone(), opt_state=optim.init(params))
     cap, dev = scene.capacity, scene.xyz.device
     return TrainState(
         params=params,
@@ -153,7 +174,12 @@ def train_step(
 
     info holds loss, psnr (0-d tensors), num_splats, num_visible,
     truncated (ints) and n_alive (0-d tensor).
+
+    A ``ScaffoldTrainState`` takes ``_scaffold_step`` (at n_sh_band 0).
     """
+    if isinstance(state, ScaffoldTrainState):
+        return _scaffold_step(state, gt_image, camera_K, camera_T_world, background_rgb,
+                             config=config, camera_hw=camera_hw, n_sh_band=n_sh_band)
     telemetry.count("steps")
     with telemetry.span("gs::step"):
         loss, (psnr, res), gparams, g_uv = camera_loss(
@@ -172,6 +198,51 @@ def train_step(
     return new_state, info
 
 
+def _scaffold_step(state: ScaffoldTrainState, gt_image, camera_K, camera_T_world,
+                  background_rgb, *, config: SplatConfig, camera_hw: tuple,
+                  n_sh_band: int = 0):
+    """``train_step`` of a Scaffold-GS state: decode and render
+    (``scaffold.render``), loss (1 - ssim_frac) L1 + ssim_frac (1 - SSIM) +
+    ``scaffold.VOLUME_WEIGHT`` times the volume term, gradients of the six
+    leaves through B2, the geometry and the decode, and the fused Adam step
+    at ``scaffold.LEARNING_RATES``, skipped as ``train_step`` skips.  The products of
+    the decode run in float32, forward and backward.  info as
+    ``train_step``'s, num_visible over the neural gaussians, and ``neural``
+    (an int), the rows the decode gave the layout (10 an anchor in view;
+    those of opacity > 0 render)."""
+    if n_sh_band != 0:
+        raise ValueError(f"a Scaffold-GS scene has direct colour: n_sh_band must be 0, "
+                         f"got {n_sh_band}")
+    gt = float_image(gt_image, config)
+    h, w = camera_hw
+    camera = Camera(K=camera_K, width=w, height=h)
+    telemetry.count("steps")
+    with telemetry.span("gs::step"), scaffold.exact_float32():
+        names = list(state.params)
+        params = {k: state.params[k].detach().requires_grad_(True) for k in names}
+        res, rows = scaffold.render(
+            params, state.anchor, state.alive, camera_T_world, camera,
+            near_thresh=config.near_thresh, far_thresh=config.far_thresh,
+            cull_mask_padding=config.cull_mask_padding, mh_dist=config.mh_dist,
+            background_rgb=background_rgb)
+        with telemetry.span("gs::loss"):
+            loss, psnr = train_loss(res.image, gt, config.ssim_frac)
+            loss = loss + scaffold.VOLUME_WEIGHT * scaffold.volume(rows)
+        with telemetry.span("gs::backward"):
+            grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+        gparams = {k: g if g is not None else torch.zeros_like(params[k])
+                   for k, g in zip(names, grads)}
+        with telemetry.span("gs::adam"):  # with the step skip
+            ok = step_ok(loss, gparams)
+            new_state = adam_step(state, gparams, ok, config)
+        info = dict(
+            loss=loss.detach(), psnr=psnr.detach(), num_splats=res.num_splats,
+            num_visible=res.num_visible, truncated=res.truncated,
+            n_alive=state.alive.sum(), neural=rows["opacity"].shape[0],
+        )
+    return new_state, info
+
+
 def step_ok(loss, gparams) -> torch.Tensor:
     """0-d bool: the loss and the sum of every gradient leaf are finite."""
     ok = torch.isfinite(loss.detach())
@@ -182,11 +253,13 @@ def step_ok(loss, gparams) -> torch.Tensor:
 
 def adam_step(state: TrainState, gparams: dict, ok, config: SplatConfig) -> TrainState:
     """Adam on every leaf where ``ok`` (a 0-d bool) holds; params and Adam
-    state unchanged where it does not.  A CUDA state takes one launch of the
+    state unchanged where it does not.  A ``ScaffoldTrainState``'s leaves
+    take ``scaffold.LEARNING_RATES``.  A CUDA state takes one launch of the
     fused kernel (``optim.adam_step_cuda``), a CPU state its plain version
     (``optim.adam_step_plain``); the two agree bit for bit."""
     step = optim.adam_step_cuda if state.alive.is_cuda else optim.adam_step_plain
-    params, opt_state = step(state.params, gparams, state.opt_state, ok, config)
+    rates = scaffold.LEARNING_RATES if isinstance(state, ScaffoldTrainState) else None
+    params, opt_state = step(state.params, gparams, state.opt_state, ok, config, rates)
     return state._replace(params=params, opt_state=opt_state)
 
 
