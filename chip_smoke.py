@@ -27,6 +27,13 @@ counters, that each went through its kernels:
   iteration 1000, checked for its slot accounting, zero moments and
   accumulators and the split's law, 4 steps, trainer.reset_opacity, 4
   steps (kernels B1, B2);
+- the geometry kernel pair ("[geometry]"): csrc/geometry.cu's forward and
+  backward against their plain version (ops.geometry.splat_rows_plain) at
+  2^21 slots of 1.5M seeded gaussians at band 3 on both colour paths and
+  at the 8.0M rows of a Scaffold-GS decode of 800,000 anchors, each timed
+  alone against its byte bound, then the launches of one training step
+  and one served view (every view through rasterize launches the forward
+  once, every step the backward once: with_geometry);
 - training, Scaffold-GS ("[scaffold]"): tests/test_torch_scaffold.py's
   small scene decoded, rendered and trained 3 steps through
   trainer.train_step on the card, each against the plain reference
@@ -105,6 +112,7 @@ the per-kernel JSON summary.
 import collections
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -160,6 +168,28 @@ ADAM_OPS_PER_FLOAT = 15  # m 3, v 4, the ratio 5 (3 divides, a root, eps), p 3
 # its 63,879 points, 2**ceil(log2(8 n)); DC steps before the event and
 # around the reset; the event's iteration, where the adaptive fraction is
 # (6500 - 1000) / 5750 * 2 = 1.913
+# the geometry kernel pair at the cells' shapes: the garden7k cells' slots
+# and alive gaussians, garden-scaffold's anchors (8.0M decoded rows)
+GEOMETRY_SLOTS = 1 << 21
+GEOMETRY_ALIVE = 1_500_000
+GEOMETRY_ANCHORS = 800_000
+GEOMETRY_SEED = 23
+# the forward's rows 0-5 and depth are the plain chain's float32 operations in
+# its order; the SH colour sums 16 products in another order than PyTorch's
+# reduction; the backward regroups autograd's sums (covariance, quaternion):
+# each row or leaf relative to its largest entry, and each gradient entry
+# relative to its own size with a floor at GEOMETRY_BWD_FLOOR of its leaf's
+# largest (the tests' BWD_RTOL, BWD_ELEM_RTOL and BWD_FLOOR; at these shapes
+# the worst leaf is 6.5e-7 and the worst entry 1.8e-4, an sh coefficient's)
+GEOMETRY_FWD_TOL = 1e-5
+GEOMETRY_BWD_TOL = 1e-5
+GEOMETRY_BWD_ELEM_TOL = 1e-3
+GEOMETRY_BWD_FLOOR = 1e-3
+# float32 operations a gaussian at band 3, counted from csrc/geometry.cu (the
+# bound is bytes either way)
+GEOMETRY_FWD_OPS = 300
+GEOMETRY_BWD_OPS = 700
+
 ADC_CAPACITY = 524_288
 ADC_STEPS_BEFORE = 8  # two passes over the 4 views
 ADC_STEPS_AFTER = 4
@@ -238,6 +268,24 @@ def phase(name):
     t0 = time.perf_counter()
     yield
     print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def with_geometry(want):
+    """``want`` with the launches of the geometry kernel pair that its renders
+    imply: the forward once a view (each B1 or B3 launch through
+    ``rasterize``), the backward once a step (each B2 or B4 launch).  Keys
+    are kernel names, or (name, n_sh) pairs."""
+    def kernel(key):
+        return key[0] if isinstance(key, tuple) else key
+
+    out = {k: v for k, v in want.items() if v}
+    views = sum(v for k, v in want.items() if kernel(k) in ("render_fwd", "render_sh_fwd"))
+    steps = sum(v for k, v in want.items() if kernel(k) in ("render_bwd", "render_sh_bwd"))
+    if views:
+        out["geometry_fwd"] = views
+    if steps:
+        out["geometry_bwd"] = steps
+    return out
 
 
 def fixture_scene(device):
@@ -538,6 +586,243 @@ def adam_phase(smi):
                 replaces=None,  # the JAX package leaves Adam to optax and XLA
                 launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def geometry_bytes(n, rows, mode, n_sh, alive, uv):
+    """(forward, backward) bytes the geometry kernels must move for ``n``
+    gaussians: each input the function needs read once and each output
+    written once.  The forward reads the parameters (sh where the colour
+    reads it), alive and the uv offset, and writes the feature rows, the
+    depth and the visible byte.  The backward reads no rgb (the colour is
+    linear in it); it reads the geometry leaves, the opacity and sh where
+    their gradients need them, and the gradient rows it turns into others,
+    and writes those others: on the per-pixel path rgb's and sh's
+    gradients, and for decoded rows opacity's and rgb's, are views of the
+    rows' gradient, which are neither read nor written."""
+    from gaussian_splatting_torch.ops import geometry as og
+
+    geo = 4 * (3 + 4 + 3)  # xyz, quaternion, log-scale
+    sh = 4 * 3 * (n_sh - 1) if mode != og.MODE_ROWS else 0
+    fwd = geo + 4 + 12 + sh + (1 if alive else 0) + (8 if uv else 0) + 4 * rows + 4 + 1
+    if mode == og.MODE_SH:  # rows 0-5 in; geometry and opacity in and out
+        bwd = 2 * (geo + 4) + 4 * 6
+    elif mode == og.MODE_ROWS:  # rows 0, 1, 3-5 in; geometry in and out
+        bwd = 2 * geo + 4 * 5
+    else:  # 9 rows and sh in; every leaf out
+        bwd = (geo + 4) + sh + 4 * 9 + (geo + 4 + 12) + (4 * 45 if sh else 0)
+    return n * fwd, n * bwd
+
+
+def _rel_rows(got, want):
+    """The largest |got - want| of each row over the row's largest |want|, the
+    finite entries only, and whether the same entries are finite."""
+    import torch
+
+    got, want = got.detach(), want.detach()
+    fin = torch.isfinite(want)
+    same = bool((torch.isfinite(got) == fin).all())
+    out = []
+    for g, w, f in zip(got, want, fin):
+        scale = float(w[f].abs().max()) if bool(f.any()) else 0.0
+        err = float((g[f] - w[f]).abs().max()) if bool(f.any()) else 0.0
+        out.append(err / scale if scale > 0 else err)
+    return out, same
+
+
+def _rel_entries(got, want, floor):
+    """The largest |got - want| / (|want| + floor * max|want|) over the finite
+    entries of ``want``."""
+    import torch
+
+    got, want = got.detach().double(), want.detach().double()
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0
+    w, g = want[fin], got[fin]
+    den = w.abs() + floor * float(w.abs().max())
+    return float(((g - w).abs() / den.clamp_min(1e-300)).max())
+
+
+def geometry_case(label, gaussians, alive, pose, cam, n_sh_band, use_sh_precompute, uv,
+                  leaves, smi, cull):
+    """One shape of the "[geometry]" phase: both kernels against the plain
+    version on the card (forward rows, depth and visibility; every leaf's
+    gradient of a seeded cotangent), then each kernel alone against the
+    plain version's time and its byte bound.  Returns the kernels' (ms,
+    plain ms, bound ms, share, worst errors)."""
+    import torch
+
+    from gaussian_splatting_torch import timing
+    from gaussian_splatting_torch.ops import geometry as og
+
+    kw = dict(**cull, n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
+              uv_offset=uv)
+    got = og.splat_rows(gaussians, alive, pose, cam, **kw)
+    want = og.splat_rows_plain(gaussians, alive, pose, cam, **kw)
+    n = got.z.shape[0]
+    fwd_err, fwd_same = _rel_rows(torch.cat([got.feat, got.z[None]]),
+                                  torch.cat([want.feat, want.z[None]]))
+    vis_differ = int((got.visible != want.visible).sum())
+    gen = torch.Generator(got.feat.device).manual_seed(GEOMETRY_SEED)
+    cot = torch.randn(got.feat.shape, generator=gen, device=got.feat.device)
+    names = list(leaves)
+    g_got = torch.autograd.grad(got.feat, [leaves[k] for k in names], cot, allow_unused=True)
+    g_want = torch.autograd.grad(want.feat, [leaves[k] for k in names], cot,
+                                 allow_unused=True, retain_graph=True)
+    bwd_err, elem_err, bwd_same = {}, {}, True
+    for k, a, b in zip(names, g_got, g_want):
+        if a is None and b is None:
+            continue
+        e, same = _rel_rows(a.reshape(1, -1), b.reshape(1, -1))
+        bwd_err[k] = e[0]
+        elem_err[k] = _rel_entries(a, b, GEOMETRY_BWD_FLOOR)
+        bwd_same &= same
+    worst_fwd, worst_bwd = max(fwd_err), max(bwd_err.values())
+    worst_elem = max(elem_err.values())
+    print(f"[geometry] {label}: {n} gaussians, {got.feat.shape[0]} feature rows; forward "
+          f"worst row rel err {worst_fwd:.2e} (rows {', '.join(f'{e:.1e}' for e in fwd_err)}), "
+          f"{vis_differ} visibility flags differ; backward worst leaf rel err "
+          f"{worst_bwd:.2e} ({', '.join(f'{k} {e:.1e}' for k, e in bwd_err.items())}), "
+          f"worst entry against its own size {worst_elem:.2e} "
+          f"({', '.join(f'{k} {e:.1e}' for k, e in elem_err.items())}); "
+          f"non-finite entries {'the same' if fwd_same and bwd_same else 'DIFFER'}")
+    if not (worst_fwd <= GEOMETRY_FWD_TOL and worst_bwd <= GEOMETRY_BWD_TOL
+            and worst_elem <= GEOMETRY_BWD_ELEM_TOL
+            and vis_differ == 0 and fwd_same and bwd_same):
+        raise AssertionError(f"[geometry] {label}: kernels off the plain version")
+
+    mode, n_sh, rows = og._epilogue(gaussians, n_sh_band, use_sh_precompute)
+    fwd_b, bwd_b = geometry_bytes(n, rows, mode, n_sh, alive is not None, uv is not None)
+    timer = timing.Timer(got.feat.device)
+    with torch.no_grad():
+        f_ms, f_plain, _ = timing.compare(
+            timer, lambda: og.splat_rows_fwd_cuda(gaussians, alive, pose, cam, **kw),
+            lambda: og.splat_rows_plain(gaussians, alive, pose, cam, **kw))
+    b_ms, b_plain, _ = timing.compare(
+        timer, lambda: og.splat_rows_bwd_cuda(gaussians, pose, cam.K, cot,
+                                              n_sh_band=n_sh_band,
+                                              use_sh_precompute=use_sh_precompute),
+        lambda: torch.autograd.grad(want.feat, [leaves[k] for k in names], cot,
+                                    allow_unused=True, retain_graph=True))
+    out = {}
+    for key, ms, plain_ms, nbytes, ops in (
+            ("geometry_fwd", f_ms, f_plain, fwd_b, GEOMETRY_FWD_OPS * n),
+            ("geometry_bwd", b_ms, b_plain, bwd_b, GEOMETRY_BWD_OPS * n)):
+        bound_ms, bound_by = timing.bound(nbytes, ops)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        share=bound_ms / ms,
+                        err=worst_fwd if key == "geometry_fwd" else worst_bwd)
+        print(f"[time] {key} {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {nbytes / n:.0f} B a gaussian), "
+              f"{100 * bound_ms / ms:.1f}% of the bound (CUDA events, cold L2; {smi})")
+    return out
+
+
+def geometry_phase(smi):
+    """The "[geometry]" phase: the geometry kernel pair against its plain
+    version (``ops.geometry.splat_rows_plain``) at the cells' shapes, 2^21
+    slots of 1.5M seeded gaussians at band 3 on both colour paths and the
+    8.0M rows of a Scaffold-GS decode of 800,000 anchors; each kernel
+    alone against its byte bound; the launches of one training step and
+    one served view on the main paths.  Returns the kernels line's two
+    entries."""
+    import torch
+
+    from gaussian_splatting_torch import scaffold, telemetry, trainer
+    from gaussian_splatting_torch.config import SplatConfig
+    from gaussian_splatting_torch.rasterize import rasterize
+    from gaussian_splatting_torch.structs import Camera, GaussianScene
+
+    dev = torch.device(DEVICE)
+    cfg = SplatConfig()
+    cull = dict(near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+                cull_mask_padding=cfg.cull_mask_padding)
+    K = torch.tensor([[FOCAL, 0, WIDTH / 2], [0, FOCAL, HEIGHT / 2], [0, 0, 1]],
+                     dtype=torch.float32, device=dev)
+    cam = Camera(K, WIDTH, HEIGHT)
+    ang = 0.2
+    pose = torch.eye(4, device=dev)
+    pose[:3, :3] = torch.tensor([[math.cos(ang), 0, math.sin(ang)], [0, 1, 0],
+                                 [-math.sin(ang), 0, math.cos(ang)]], device=dev)
+    pose[:3, 3] = torch.tensor([0.3, -0.2, 0.5], device=dev)
+    gen = torch.Generator(dev).manual_seed(GEOMETRY_SEED)
+
+    def in_view(n, spread):
+        """World points 2 to 20 units deep, over ``spread`` times the frame."""
+        z = 2.0 + 18.0 * torch.rand(n, generator=gen, device=dev)
+        xy = (torch.rand(n, 2, generator=gen, device=dev) - 0.5) * spread
+        xc = torch.stack([xy[:, 0] * WIDTH / FOCAL * z, xy[:, 1] * HEIGHT / FOCAL * z, z], 1)
+        return (xc - pose[:3, 3]) @ pose[:3, :3]
+
+    n = GEOMETRY_ALIVE
+    scene = GaussianScene.create(
+        in_view(n, 1.2), torch.rand(n, 3, generator=gen, device=dev),
+        torch.randn(n, 1, generator=gen, device=dev),
+        -4.5 + 0.5 * torch.randn(n, 3, generator=gen, device=dev),
+        torch.randn(n, 4, generator=gen, device=dev),
+        0.2 * torch.randn(n, 3, 15, generator=gen, device=dev),
+        capacity=GEOMETRY_SLOTS, device=dev)
+    entries = {}
+    for label, pre in (("precompute", True), ("per-pixel", False)):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+        uv = torch.zeros(2, GEOMETRY_SLOTS, device=dev, requires_grad=True)
+        out = geometry_case(f"{GEOMETRY_SLOTS} slots, band {SH_BAND}, {label}", leaves,
+                            scene.alive, pose, cam, SH_BAND, pre, uv,
+                            dict(leaves, uv_offset=uv), smi, cull)
+        for key, v in out.items():
+            entries.setdefault(key, v)  # the precomputed path's shape stands for it
+
+    # the rows of a Scaffold-GS decode: 800,000 anchors in view, 10 rows each
+    torch.manual_seed(GEOMETRY_SEED)  # the MLPs' default initialisation
+    m = GEOMETRY_ANCHORS
+    anchors = scaffold.ScaffoldScene(
+        in_view(m, 0.9),  # every anchor in view
+        torch.rand(m, scaffold.N_OFFSETS, 3, generator=gen, device=dev) * 2 - 1,
+        torch.randn(m, scaffold.FEAT_DIM, generator=gen, device=dev),
+        torch.full((m, 6), math.log(0.02), device=dev), torch.ones(m, dtype=torch.bool,
+                                                                  device=dev))
+    with torch.no_grad():
+        dec = scaffold.decode(anchors.params(), anchors.anchor, anchors.alive, pose, cam,
+                              **cull)
+    flat = torch.cat([dec["xyz"], dec["scale"], dec["quaternion"], dec["opacity"][:, None],
+                      dec["rgb"]], 1).requires_grad_(True)
+    rows = dict(xyz=flat[:, 0:3], scale=flat[:, 3:6], quaternion=flat[:, 6:10],
+                opacity=flat[:, 10], rgb=flat[:, 11:14])
+    if flat.shape[0] != GEOMETRY_ANCHORS * scaffold.N_OFFSETS:
+        raise AssertionError(f"[geometry] the decode gave {flat.shape[0]} rows")
+    out = geometry_case(f"{flat.shape[0]} decoded rows", rows, None, pose, cam, 0, True,
+                        None, dict(flat=flat), smi, cull)
+    for key, v in out.items():
+        entries[key]["rows"] = v
+    del flat, rows, dec, anchors
+
+    # the main paths: one training step, one served view
+    state = trainer.init_train_state(scene, cfg)
+    gt = torch.rand(HEIGHT, WIDTH, 3, generator=gen, device=dev)
+    bg = torch.zeros(3, device=dev)
+    kw = dict(config=cfg, camera_hw=(HEIGHT, WIDTH), n_sh_band=SH_BAND)
+    trainer.train_step(state, gt, K, pose, bg, **kw)  # warm
+    telemetry.LAUNCHES.clear()
+    trainer.train_step(state, gt, K, pose, bg, **kw)
+    torch.cuda.synchronize()
+    step = dict(telemetry.LAUNCHES)
+    telemetry.LAUNCHES.clear()
+    with torch.no_grad():
+        rasterize(scene.params(), scene.alive, pose, cam, background_rgb=bg,
+                  n_sh_band=SH_BAND, mh_dist=cfg.mh_dist, **cull)
+    torch.cuda.synchronize()
+    view = dict(telemetry.LAUNCHES)
+    print(f"[geometry] launches of one training step {step}; of one served view {view}")
+    want_step = with_geometry({"render_fwd": 1, "render_bwd": 1, "adam_step": 1})
+    if step != want_step or view != with_geometry({"render_fwd": 1}):
+        raise AssertionError(f"[geometry] launches {step}, {view}")
+    halves = {"geometry_fwd": "forward", "geometry_bwd": "backward"}
+    return [dict(name=f"{key} (geometry kernel pair, {halves[key]})", route="cuda", source="gaussian_splatting_torch/csrc/geometry.cu",
+                 replaces=None,  # the JAX package leaves the chain to XLA
+                 launches=0, max_abs_err=e["err"], ms=e["ms"], plain_ms=e["plain_ms"],
+                 bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
+                 decoded_rows={k: e["rows"][k] for k in ("ms", "plain_ms", "bound_ms")})
+            for key, e in entries.items()]
 
 
 def cotangent(raw, seed):
@@ -861,7 +1146,7 @@ def training_phase(setup, cfg, steps, tag, kernels):
     launches = dict(telemetry.LAUNCHES)
     print(f"[{tag}] launches {launches}")
 
-    want = dict({name: steps for name in kernels}, adam_step=steps)
+    want = with_geometry(dict({name: steps for name in kernels}, adam_step=steps))
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     count = int(state.opt_state.count)
@@ -1053,7 +1338,7 @@ def scaffold_phase(smi):
         print(f"[{tag}] step {i} view {i % 2}: loss {losses[-1]:.6f} rows {info['neural']} "
               f"splats {info['num_splats']} ({step_ms[-1]:.2f} ms)")
     launches = dict(telemetry.LAUNCHES)
-    want = {"render_fwd": 8, "render_bwd": 8, "adam_step": 8}
+    want = with_geometry({"render_fwd": 8, "render_bwd": 8, "adam_step": 8})
     if launches != want or int(state.opt_state.count) != 8:
         raise AssertionError(f"{tag}: expected launches {want} and 8 steps, got {launches}, "
                              f"count {int(state.opt_state.count)}")
@@ -1092,7 +1377,7 @@ def dc_steps(state, setup, cfg, first, steps, tag):
     launches = dict(telemetry.LAUNCHES)
     print(f"[{tag}] steps {first}-{first + steps - 1}: losses "
           f"{' '.join(f'{x:.6f}' for x in losses)}; launches {launches}")
-    want = {"render_fwd": steps, "render_bwd": steps, "adam_step": steps}
+    want = with_geometry({"render_fwd": steps, "render_bwd": steps, "adam_step": steps})
     if launches != want or not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: expected launches {want} and finite losses, got "
                              f"{launches}, {losses}")
@@ -1382,9 +1667,9 @@ def check_cli_run(runner, out, launches, start_iter, num_iters, tag):
     m = runner.metrics
     steps = len(m.train_psnr)
     debug = sorted(f for f in os.listdir(out) if f.startswith("debug_iter"))
-    want = {"render_fwd": len(runner.data.images) + steps
-            + len(m.eval_iters) * len(runner.test_split) + len(debug),
-            "render_bwd": steps, "adam_step": steps}
+    want = with_geometry({"render_fwd": len(runner.data.images) + steps
+                          + len(m.eval_iters) * len(runner.test_split) + len(debug),
+                          "render_bwd": steps, "adam_step": steps})
     print(f"[{tag}] launches {launches}: {len(runner.data.images)} ground-truth views, "
           f"{steps} steps, {len(m.eval_iters)} evals of {len(runner.test_split)} views, "
           f"{len(debug)} debug images")
@@ -1931,13 +2216,15 @@ def capture_phase(smi):
         n_alive = int(runner.state.alive.sum())
 
         got = collections.Counter({k: v for k, v in launches.items()
-                                   if k in ("render_fwd", "render_bwd", "adam_step")})
+                                   if k in ("render_fwd", "render_bwd", "adam_step",
+                                            "geometry_fwd", "geometry_bwd")})
         got.update(by_n_sh)
-        want = expected_capture_launches(runner, out)
+        want = with_geometry(expected_capture_launches(runner, out))
         print(f"[capture] launches {launches}; B3/B4 by n_sh "
               f"{dict(sorted(by_n_sh.items()))}")
         if got != want or set(launches) - {"render_fwd", "render_bwd", "render_sh_fwd",
-                                           "render_sh_bwd", "adam_step"}:
+                                           "render_sh_bwd", "adam_step", "geometry_fwd",
+                                           "geometry_bwd"}:
             raise AssertionError(f"[capture] expected launches {dict(want)}, got {dict(got)}")
         if {n for (_, n) in by_n_sh} != {4, 9, 16}:
             raise AssertionError(f"[capture] B3/B4 not at n_sh 4, 9 and 16: {by_n_sh}")
@@ -2052,7 +2339,7 @@ def capture_phase(smi):
               f"--depth: launches {launches}, {len(pngs)} PNGs, {render_s:.1f} s, "
               f"{render_s * 1e3 / len(test):.3f} ms a view with the checkpoint's load "
               f"and both PNGs ({smi})")
-        if launches != {"render_fwd": len(test), "depth_fwd": len(test)}:
+        if launches != with_geometry({"render_fwd": len(test), "depth_fwd": len(test)}):
             raise AssertionError(f"[capture] render_torch launches {launches}")
         if len(pngs) != 2 * len(test) or len(views) != len(test):
             raise AssertionError(f"[capture] {len(views)} views, {len(pngs)} PNGs")
@@ -2491,8 +2778,8 @@ def mgpu_phase(smi):
             print(f"[mgpu] (b) rank {r}: all-gather of 46 MB a rank (92 MB gathered) of "
                   f"CUDA tensors over gloo: {', '.join(f'{t:.3f}' for t in b['gather_ms'])} "
                   f"ms (host clock between synchronisations; {smi})")
-            want = {"render_fwd": 3, "render_bwd": 2, "render_sh_fwd": 2, "render_sh_bwd": 1,
-                    "adam_step": 3}
+            want = with_geometry({"render_fwd": 3, "render_bwd": 2, "render_sh_fwd": 2,
+                                  "render_sh_bwd": 1, "adam_step": 3})
             if b["launches"] != want:
                 raise AssertionError(f"[mgpu] (b) rank {r} launches {b['launches']} != {want}")
             totals.update(b["launches"])
@@ -2713,8 +3000,9 @@ def serve_per_pixel(params, alive, poses, cam, scene_kw, dev):
         torch.cuda.synchronize()
         launches = dict(telemetry.LAUNCHES)
     print(f"[main-sh] launches {launches}")
-    if launches != {"render_sh_fwd": N_VIEWS}:
-        raise AssertionError(f"expected {N_VIEWS} launches of B3 only, got {launches}")
+    if launches != with_geometry({"render_sh_fwd": N_VIEWS}):
+        raise AssertionError(f"expected {N_VIEWS} launches of B3 and its geometry only, "
+                             f"got {launches}")
     for i, res in enumerate(results):
         im = res.image
         if tuple(im.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(im).all()):
@@ -2776,7 +3064,7 @@ def install_results(dev, colmap_dir):
     res = rasterize(params, fx.alive, pose, cam, background_rgb=torch.zeros(3, device=dev),
                     n_sh_band=0, **FX_RENDER)
     torch.cuda.synchronize()
-    if dict(telemetry.LAUNCHES) != {"render_fwd": 1}:
+    if dict(telemetry.LAUNCHES) != with_geometry({"render_fwd": 1}):
         raise AssertionError(f"[install] fixture render launched {dict(telemetry.LAUNCHES)}")
     out = {"image": res.image.cpu().numpy(), "T": res.transmittance.cpu().numpy()}
 
@@ -3047,6 +3335,8 @@ def main():
     # cells' shapes, then the training paths: DC (B1, B2), per-pixel SH (B3, B4)
     with phase("Adam vs plain"):
         adam_entry = adam_phase(smi)
+    with phase("geometry kernel pair vs plain"):
+        geometry_entries = geometry_phase(smi)
     with phase("training setup"):
         setup = training_setup(dev, scene_kw)
     with phase("training, DC"):
@@ -3146,6 +3436,12 @@ def main():
             refscale_launches,
             capture_launches, mgpu_launches))
     kernels.append(adam_entry)
+    parts = (launches, sh_launches, train_launches, sh_train_launches, adc_launches,
+             scaffold_launches, refscale_launches, capture_launches, mgpu_launches)
+    for e in geometry_entries:
+        key = e["name"].split()[0]
+        e["launches"] = sum(part.get(key, 0) for part in parts)
+        kernels.append(e)
     for key, label, source, replaces, point in PROBES:
         p = probes[key]
         kernels.append(dict(

@@ -71,6 +71,11 @@ SIGNATURES = {
         # ptrs, dims, mult (host arrays), n_leaves, n_chunks, hyper (host),
         # bc1, bc2, ok, count, count_out, stream
         "gs_adam_step": (_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P),
+        # ptrs, dims (host arrays), mode, n_sh, cull (host), feat, z, visible,
+        # stream
+        "gs_geometry_fwd": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
+        # ptrs, dims (host), mode, n_sh, grad_feat, grads (host), stream
+        "gs_geometry_bwd": (_P, _P, _I, _I, _P, _P, _P),
     },
     "probes": {
         # vals, dest, n, rows, group, out, stream

@@ -31,6 +31,9 @@ from gaussian_splatting_torch.structs import TILE_PX, TileGrid
 # cells in enumeration order (x outer, y inner); the rest are counted in
 # SplatLayout.truncated.  Same cap as the JAX package's TIER_CELLS[-1].
 MAX_WINDOW_CELLS = 4096
+# candidate cells per piece of the layout's separating-axis test: its
+# temporaries stay this size whatever the splat count
+SAT_CHUNK = 1 << 21
 
 
 class SplatLayout(NamedTuple):
@@ -178,14 +181,17 @@ def _depth_bits(z):
     return zf.view(torch.int32).to(torch.int64)
 
 
-def _sanitised(u, v, conic, z):
-    """(finite, u, v, a, b, c): the regularised 2D covariance entries
-    a = conic0 + 0.25, b = conic1 / 2, c = conic2 + 0.25, and each gaussian
-    with a non-finite u, v, z, a, b or c marked not finite and given
-    u = v = b = 0, a = c = 1, so the sort keys stay well ordered."""
-    a = conic[0] + 0.25
-    b = conic[1] * 0.5
-    c = conic[2] + 0.25
+def _regularised(conic):
+    """The regularised 2D covariance entries a = conic0 + 0.25, b = conic1 / 2,
+    c = conic2 + 0.25 of the raw [a, 2b, c] rows, with the feature rows'
+    operations (``ops.render.splat_feature_rows``)."""
+    return conic[0] + 0.25, conic[1] * 0.5, conic[2] + 0.25
+
+
+def _sanitised(u, v, a, b, c, z):
+    """(finite, u, v, a, b, c) of the regularised entries a, b, c: each
+    gaussian with a non-finite u, v, z, a, b or c marked not finite and
+    given u = v = b = 0, a = c = 1, so the sort keys stay well ordered."""
     finite = torch.isfinite(u) & torch.isfinite(v) & torch.isfinite(z)
     finite &= torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(c)
     u = torch.where(finite, u, torch.zeros_like(u))
@@ -207,22 +213,51 @@ def build_layout(u, v, conic, z, visible, grid: TileGrid, mh_dist: float,
     reach ALPHA_SKIP.  Without it (golden splat lists) the window is the
     pure mh_dist ellipse.
     """
+    return _layout(u, v, *_regularised(conic), z, visible, grid, mh_dist, opacity)
+
+
+def feature_layout(feat, z, visible, grid: TileGrid, mh_dist: float) -> SplatLayout:
+    """``build_layout`` of the rasterizer's feature rows (``ops.geometry.
+    splat_rows``): u, v, opacity, a + 1/4, b / 2, c + 1/4, with the
+    opacity-aware window.  Bit for bit the layout ``build_layout`` gives
+    the rows they were formed from: the feature rows hold the regularised
+    entries it would form."""
+    return _layout(feat[cc.FEAT_U], feat[cc.FEAT_V], feat[cc.FEAT_A], feat[cc.FEAT_B],
+                   feat[cc.FEAT_C], z, visible, grid, mh_dist, feat[cc.FEAT_OPACITY])
+
+
+def _layout(u, v, a, b, c, z, visible, grid: TileGrid, mh_dist: float,
+            opacity: Optional[torch.Tensor]) -> SplatLayout:
+    """``build_layout`` of the regularised entries a, b, c.
+
+    Each temporary is let go once it has been read, the candidate cells are
+    held as int32 (gaussian, tile x, tile y: 12 bytes a cell), and the
+    separating-axis test runs over them in pieces of SAT_CHUNK: the
+    layout's memory peak is its (N,) rows' and one piece's, and hardly
+    moves with the splat count.
+    """
     with telemetry.span("gs::layout.cull"):
-        finite, u, v, a, b, c = _sanitised(u, v, conic, z)
+        finite, u, v, a, b, c = _sanitised(u, v, a, b, c, z)
         visible = visible & finite
+        del finite
 
         if opacity is not None:
             # cells whose whole tile lies beyond the iso-alpha ellipse
             # {mh = 2 ln(op / ALPHA_SKIP)} contribute nothing
             q_max = 2.0 * torch.log(opacity.clamp_min(1e-12) * (1.0 / cc.ALPHA_SKIP))
             mh_eff = torch.sqrt(q_max.clamp_min(0.0)).clamp_max(mh_dist)
+            del q_max
             visible = visible & (opacity > cc.ALPHA_SKIP)
         else:
             mh_eff = mh_dist
 
         obb, _ = _obb_and_radius(u, v, a, b, c, mh_eff)
+        del u, v, a, b, c, mh_eff
         sx, sy, wx, wy = _window(obb, grid.x_tiles, grid.y_tiles)
         area = torch.where(visible, wx * wy, torch.zeros_like(wx))
+        del visible, wx
+        # tile coordinates and window heights are below the grid's size
+        sx, sy, wy = sx.to(torch.int32), sy.to(torch.int32), wy.to(torch.int32)
         contributes = area > 0
         num_visible = int(contributes.sum())
         telemetry.count("sync.layout.visible")
@@ -234,35 +269,49 @@ def build_layout(u, v, conic, z, visible, grid: TileGrid, mh_dist: float,
         gid_c = torch.nonzero(contributes).squeeze(1)
         telemetry.count("sync.layout.nonzero")
         cells = area[gid_c].clamp_max(MAX_WINDOW_CELLS)
+        del contributes, area
         # a repeat_interleave with tensor repeats reads twice: the output's
         # size, and the check that no repeat is negative
-        gid = torch.repeat_interleave(gid_c, cells)
+        gid = torch.repeat_interleave(gid_c.to(torch.int32), cells)
         telemetry.count("sync.layout.repeat_gid", 2)
+        del gid_c
         first = torch.cumsum(cells, 0) - cells
         k = torch.arange(gid.numel(), device=gid.device) - torch.repeat_interleave(
             first, cells
         )
         telemetry.count("sync.layout.repeat_first", 2)
-        wy_g = wy[gid]
-        tx = sx[gid] + k // wy_g
-        ty = sy[gid] + k % wy_g
+        del first, cells
+        k = k.to(torch.int32)  # the cell's place in its window, below MAX_WINDOW_CELLS
+        wy_g = wy.index_select(0, gid)
+        tx = sx.index_select(0, gid) + k // wy_g
+        ty = sy.index_select(0, gid) + k % wy_g
+        del k, wy_g, sx, sy, wy
 
     with telemetry.span("gs::layout.sat"):
-        hit = _split_axis_test(obb[gid], tx, ty)
+        hit = torch.empty(gid.numel(), dtype=torch.bool, device=gid.device)
+        for s in range(0, gid.numel(), SAT_CHUNK):
+            e = s + SAT_CHUNK
+            hit[s:e] = _split_axis_test(obb.index_select(0, gid[s:e]), tx[s:e], ty[s:e])
+        del obb
         gid = gid[hit]
         telemetry.count("sync.layout.hit_gid")
         tx = tx[hit]
         telemetry.count("sync.layout.hit_tx")
         ty = ty[hit]
         telemetry.count("sync.layout.hit_ty")
+        del hit
 
     with telemetry.span("gs::layout.sort"):
-        tile = ty * grid.x_tiles + tx
-        key = (tile << 32) | _depth_bits(z)[gid]
+        tile = (ty * grid.x_tiles + tx).to(torch.int64)
+        del tx, ty
+        key = (tile << 32) | _depth_bits(z).index_select(0, gid)
+        del tile
         key, order = torch.sort(key, stable=True)
-        gaussian_idx = gid[order].to(torch.int32)
+        gaussian_idx = gid[order]
+        del gid, order
         tile_sorted = key >> 32
-        tile_ids = torch.arange(grid.tile_count + 1, device=key.device,
+        del key
+        tile_ids = torch.arange(grid.tile_count + 1, device=tile_sorted.device,
                                 dtype=torch.int64)
         starts = torch.searchsorted(tile_sorted, tile_ids).to(torch.int32)
         counts = starts[1:] - starts[:-1]
@@ -341,7 +390,7 @@ def layout_with_features(uv, conic, z_camera, visible, feat_g, grid: TileGrid,
     u, v, rows = _rows_of(uv, conic)
     carried, opacity = feat_g.detach(), None
     if feat_g.shape[0] >= 6:
-        _, su, sv, a, b, c = _sanitised(u, v, rows, z_camera)
+        _, su, sv, a, b, c = _sanitised(u, v, *_regularised(rows), z_camera)
         carried = torch.cat([torch.stack([su, sv, carried[2], a, b, c]).detach(),
                              carried[6:]])
         opacity = carried[2]

@@ -40,7 +40,7 @@ def splat_feature_rows(u, v, opacity_v, c0, c1, c2, r, g, b):
 def splat_features(uv, opacity, conic, rgb):
     """(N, C)-array wrapper over ``splat_feature_rows``: uv (N, 2), opacity
     (N, 1), conic (N, 3), rgb (N, 3) -> (9, N).  Not the rasterizer's
-    ``rasterize.splat_features``, which forms the rows from the params."""
+    ``ops.geometry.splat_features``, which forms the rows from the params."""
     return splat_feature_rows(uv[:, 0], uv[:, 1], opacity[:, 0], conic[:, 0],
                               conic[:, 1], conic[:, 2], rgb[:, 0], rgb[:, 1],
                               rgb[:, 2])

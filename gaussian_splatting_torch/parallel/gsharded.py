@@ -32,14 +32,14 @@ from __future__ import annotations
 import torch
 
 from gaussian_splatting_torch import trainer as T
-from gaussian_splatting_torch.culling import build_layout, frustum_visible_rows
+from gaussian_splatting_torch.culling import feature_layout
 from gaussian_splatting_torch.losses import eval_psnr_ssim, train_loss
+from gaussian_splatting_torch.ops.geometry import splat_rows
 from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
 from gaussian_splatting_torch.ops.render import render_tiles
 from gaussian_splatting_torch.ops.render_sh import build_pixel_basis, render_tiles_sh
 from gaussian_splatting_torch.parallel import comm
 from gaussian_splatting_torch.parallel.mesh import reduce_counts, reduce_over_data
-from gaussian_splatting_torch.rasterize import _camera_rows, splat_features
 from gaussian_splatting_torch.structs import TILE_PX, Camera, TileGrid
 
 
@@ -77,17 +77,12 @@ def _band_image(params, alive, uv_offset, camera_K, camera_T_world, background_r
     h, w = camera_hw
     rows = band_rows(TileGrid(h, w).y_tiles, mesh.mp)
 
-    # per-shard geometry
-    xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(
-        params, camera_T_world, Camera(K=camera_K, width=w, height=h))
-    if uv_offset is not None:
-        u = u + uv_offset[0]
-        v = v + uv_offset[1]
-    visible = frustum_visible_rows(
-        u, v, zc, (w, h), config.near_thresh, config.far_thresh, config.cull_mask_padding,
-    ) & alive
-    feat, per_pixel_sh = splat_features(params, u, v, conic3, opacity_v, camera_T_world,
-                                        n_sh_band, config.use_sh_precompute)
+    # per-shard geometry and features
+    feat, zc, visible, per_pixel_sh = splat_rows(
+        params, alive, camera_T_world, Camera(K=camera_K, width=w, height=h),
+        near_thresh=config.near_thresh, far_thresh=config.far_thresh,
+        cull_mask_padding=config.cull_mask_padding, n_sh_band=n_sh_band,
+        use_sh_precompute=config.use_sh_precompute, uv_offset=uv_offset)
     n_feat = feat.shape[0]
 
     # one gather of the splat bundle; its backward is the reduce-scatter
@@ -97,17 +92,14 @@ def _band_image(params, alive, uv_offset, camera_K, camera_T_world, background_r
 
     # the band: rows 0..5 are u, v, op, a + 1/4, b / 2, c + 1/4.  The
     # kernels read v from the features, so v becomes band-local here (a
-    # differentiable shift); the layout takes the raw conic rows [a, 2b, c]
-    # and the opacity, as rasterize gives them
+    # differentiable shift); the layout reads the band's feature rows, as
+    # rasterize's reads the view's
     v_origin = float(mesh.model_rank * rows * TILE_PX)
     band_grid = TileGrid(rows * TILE_PX, w)
     v_band = feat_full[1] - v_origin
     feat_band = torch.cat([feat_full[:1], v_band[None], feat_full[2:]])
     with torch.no_grad():
-        layout = build_layout(
-            feat_full[0], v_band,
-            (feat_full[3] - 0.25, feat_full[4] * 2.0, feat_full[5] - 0.25),
-            zc_full, vis_full, band_grid, config.mh_dist, opacity=feat_full[2])
+        layout = feature_layout(feat_band, zc_full, vis_full, band_grid, config.mh_dist)
     if per_pixel_sh:
         # the band-local pixel ray through (x, y_local) is the global ray
         # through (x, y_local + v_origin) when cy moves by -v_origin

@@ -3,8 +3,10 @@
 per-pixel SH branch and depth).
 
 The pipeline runs on whatever device the parameters live on: on CUDA the
-rasterizer and depth renderer launch their hand-written kernels, on the
-CPU they run their plain PyTorch versions.
+geometry (``ops.geometry.splat_rows``), the rasterizer and the depth
+renderer launch their hand-written kernels, on the CPU they run their plain
+PyTorch versions.  The depth path forms its geometry with the plain chain
+on both.
 """
 
 from __future__ import annotations
@@ -15,15 +17,17 @@ import torch
 
 from gaussian_splatting_torch import geometry as geo
 from gaussian_splatting_torch import telemetry
-from gaussian_splatting_torch.culling import SplatLayout, build_layout, frustum_visible_rows
-from gaussian_splatting_torch.ops.depth import depth_feature_rows, render_depth_tiles
-from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
-from gaussian_splatting_torch.ops.render import render_tiles, splat_feature_rows
-from gaussian_splatting_torch.ops.render_sh import (
-    build_pixel_basis,
-    render_tiles_sh,
-    sh_splat_feature_rows,
+from gaussian_splatting_torch.culling import (
+    SplatLayout,
+    build_layout,
+    feature_layout,
+    frustum_visible_rows,
 )
+from gaussian_splatting_torch.ops.depth import depth_feature_rows, render_depth_tiles
+from gaussian_splatting_torch.ops.geometry import active_sh_coeffs, camera_rows, splat_rows
+from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
+from gaussian_splatting_torch.ops.render import render_tiles
+from gaussian_splatting_torch.ops.render_sh import build_pixel_basis, render_tiles_sh
 from gaussian_splatting_torch.structs import Camera, TileGrid
 
 
@@ -35,12 +39,6 @@ class RenderResult(NamedTuple):
     num_splats: int  # live (gaussian, tile) pairs
     num_visible: int  # gaussians with at least one window cell
     truncated: int  # window cells dropped past culling.MAX_WINDOW_CELLS
-
-
-def _active_sh_coeffs(n_sh_band: int) -> int:
-    if n_sh_band not in (0, 1, 2, 3):
-        raise ValueError(f"n_sh_band must be 0..3, got {n_sh_band}")
-    return (n_sh_band + 1) ** 2
 
 
 def _check_inputs(params: dict, alive, camera_T_world, camera: Camera):
@@ -73,52 +71,6 @@ def _check_inputs(params: dict, alive, camera_T_world, camera: Camera):
             raise ValueError(f"inputs on {t.device} and {dev}: move them to one device")
 
 
-def _camera_geometry(rows, camera_T_world, camera):
-    """Camera-frame centres, projections and conics of every gaussian of
-    ``rows`` (xyz, quaternion, log-space scale)."""
-    xyzT = rows["xyz"].T
-    xc, yc, zc = geo.transform_rows(xyzT[0], xyzT[1], xyzT[2], camera_T_world)
-    u, v = geo.project_rows(xc, yc, zc, camera.K)
-    sig6 = geo.sigma_world_rows(rows["quaternion"], rows["scale"])
-    conic3 = geo.conic_rows(sig6, xc, yc, zc, camera.K, camera_T_world)
-    return xc, yc, zc, u, v, conic3
-
-
-def _camera_rows(params, camera_T_world, camera):
-    """``_camera_geometry`` and the activated opacity of every gaussian."""
-    xc, yc, zc, u, v, conic3 = _camera_geometry(params, camera_T_world, camera)
-    opacity_v = torch.sigmoid(params["opacity"][:, 0])
-    return xc, yc, zc, u, v, conic3, opacity_v
-
-
-def splat_features(params, u, v, conic3, opacity_v, camera_T_world, n_sh_band: int,
-                   use_sh_precompute: bool):
-    """The rasterizer's per-gaussian feature rows and whether they are the
-    per-pixel SH rows: (6 + 3*n_sh, N) raw coefficients, which the kernel
-    contracts with each pixel's view-direction basis, when n_sh > 1 and not
-    ``use_sh_precompute``; else (9, N) DC colour, the SH bands evaluated
-    once per gaussian along its view direction."""
-    n_sh = _active_sh_coeffs(n_sh_band)
-    if n_sh > 1:
-        coeffs = torch.cat(
-            [params["rgb"][:, :, None], params["sh"][:, :, : n_sh - 1]], dim=2
-        )
-    if n_sh > 1 and not use_sh_precompute:
-        return sh_splat_feature_rows(u, v, opacity_v, conic3, coeffs), True
-    if n_sh == 1:
-        rgb = params["rgb"]
-    else:
-        center = geo.camera_center_from_pose(camera_T_world)
-        rgb = geo.precompute_rgb_from_sh(coeffs, params["xyz"], center)
-    # the DC rasterizer path scales colour by SH_0; folding it into the
-    # features keeps the kernel linear in colour
-    feat = splat_feature_rows(
-        u, v, opacity_v, *conic3,
-        rgb[:, 0] * geo.SH_0, rgb[:, 1] * geo.SH_0, rgb[:, 2] * geo.SH_0,
-    )
-    return feat, False
-
-
 class KernelInputs(NamedTuple):
     """Everything ``rasterize`` hands the rasterizer kernels."""
 
@@ -145,37 +97,29 @@ def kernel_inputs(
     use_sh_precompute: bool = True,
     uv_offset: Optional[torch.Tensor] = None,
 ) -> KernelInputs:
-    """Camera rows, visibility and the tile layout, shared by both colour
-    paths, and the features of the one ``rasterize`` takes: per-pixel SH
-    (``basis`` set) when n_sh > 1 and not ``use_sh_precompute``, else DC
-    colour with the SH bands evaluated once per gaussian.  ``uv_offset``
-    (2, N) is added to u and v before visibility and features."""
+    """Feature rows, visibility and the tile layout, and the per-pixel SH
+    basis (``basis`` set) when n_sh > 1 and not ``use_sh_precompute``; else
+    DC colour with the SH bands evaluated once per gaussian
+    (``ops.geometry.splat_rows``: one kernel launch on the card).
+    ``uv_offset`` (2, N) is added to u and v before visibility and
+    features."""
     _check_inputs(params, alive, camera_T_world, camera)
-    n_sh = _active_sh_coeffs(n_sh_band)
     grid = TileGrid(camera.height, camera.width)
     with telemetry.span("gs::render.geometry"):
-        xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(params, camera_T_world, camera)
-        if uv_offset is not None:
-            u = u + uv_offset[0]
-            v = v + uv_offset[1]
-        visible = frustum_visible_rows(
-            u, v, zc, (camera.width, camera.height),
-            near_thresh, far_thresh, cull_mask_padding,
-        )
-        visible = visible & alive
+        g = splat_rows(params, alive, camera_T_world, camera, near_thresh=near_thresh,
+                       far_thresh=far_thresh, cull_mask_padding=cull_mask_padding,
+                       n_sh_band=n_sh_band, use_sh_precompute=use_sh_precompute,
+                       uv_offset=uv_offset)
     with torch.no_grad(), telemetry.span("gs::layout"):
-        layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
-                              opacity=opacity_v)
+        layout = feature_layout(g.feat, g.z, g.visible, grid, mh_dist)
 
-    with telemetry.span("gs::render.features"):
-        feat, per_pixel_sh = splat_features(params, u, v, conic3, opacity_v,
-                                            camera_T_world, n_sh_band, use_sh_precompute)
-        basis = None
-        if per_pixel_sh:
-            # the basis gets no gradient
-            with torch.no_grad():
-                basis = build_pixel_basis(camera.K, camera_T_world, n_sh, grid)
-    return KernelInputs(feat, basis, layout, grid, visible, u, v)
+    basis = None
+    if g.per_pixel_sh:
+        # the basis gets no gradient
+        with torch.no_grad(), telemetry.span("gs::render.features"):
+            basis = build_pixel_basis(camera.K, camera_T_world,
+                                      active_sh_coeffs(n_sh_band), grid)
+    return KernelInputs(g.feat, basis, layout, grid, g.visible, g.feat[0], g.feat[1])
 
 
 def rasterize(
@@ -265,27 +209,12 @@ def rows_kernel_inputs(
         raise ValueError("rows must hold opacity (N,) and xyz, scale, quaternion, rgb "
                          f"(N, 3/3/4/3); got { {k: tuple(v.shape) for k, v in rows.items()} }")
     grid = TileGrid(camera.height, camera.width)
-    # The layout runs on geometry that keeps no graph, and the geometry is
-    # formed again for the gradient after it: the layout's temporaries grow
-    # with the splats, which move as the decoded opacities train, and on top
-    # of the graph's saved tensors they set a step's memory peak.
-    with torch.no_grad():
-        with telemetry.span("gs::render.geometry"):
-            _, _, zc, u, v, conic3 = _camera_geometry(rows, camera_T_world, camera)
-            visible = frustum_visible_rows(
-                u, v, zc, (camera.width, camera.height),
-                near_thresh, far_thresh, cull_mask_padding,
-            )
-        with telemetry.span("gs::layout"):
-            layout = build_layout(u, v, conic3, zc, visible, grid, mh_dist,
-                                  opacity=rows["opacity"])
     with telemetry.span("gs::render.geometry"):
-        _, _, _, u, v, conic3 = _camera_geometry(rows, camera_T_world, camera)
-    with telemetry.span("gs::render.features"):
-        rgb = rows["rgb"]
-        feat = splat_feature_rows(u, v, rows["opacity"], *conic3,
-                                  rgb[:, 0], rgb[:, 1], rgb[:, 2])
-    return KernelInputs(feat, None, layout, grid, visible, u, v)
+        g = splat_rows(rows, None, camera_T_world, camera, near_thresh=near_thresh,
+                       far_thresh=far_thresh, cull_mask_padding=cull_mask_padding)
+    with torch.no_grad(), telemetry.span("gs::layout"):
+        layout = feature_layout(g.feat, g.z, g.visible, grid, mh_dist)
+    return KernelInputs(g.feat, None, layout, grid, g.visible, g.feat[0], g.feat[1])
 
 
 def rasterize_rows(
@@ -325,7 +254,7 @@ def depth_kernel_inputs(
     renderer."""
     _check_inputs(params, alive, camera_T_world, camera)
     grid = TileGrid(camera.height, camera.width)
-    xc, yc, zc, u, v, conic3, opacity_v = _camera_rows(params, camera_T_world, camera)
+    xc, yc, zc, u, v, conic3, opacity_v = camera_rows(params, camera_T_world, camera)
     visible = frustum_visible_rows(
         u, v, zc, (camera.width, camera.height),
         near_thresh, float("inf"), cull_mask_padding,

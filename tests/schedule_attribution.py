@@ -222,7 +222,7 @@ def nonfinite_steps(out: str, device: str = "cuda", num_iters: int = 3400,
     import train_torch
     from gaussian_splatting_torch import trainer
     from gaussian_splatting_torch.experiments import refscale_run
-    from gaussian_splatting_torch.rasterize import _camera_rows
+    from gaussian_splatting_torch.ops.geometry import camera_rows
     from gaussian_splatting_torch.structs import Camera
 
     step, records, calls = trainer.train_step, [], [0]
@@ -245,7 +245,7 @@ def nonfinite_steps(out: str, device: str = "cuda", num_iters: int = 3400,
             slots = torch.nonzero(bad).flatten()[:8]
             h, w = camera_hw
             p = {k: v[slots] for k, v in state.params.items()}
-            _, _, zc, u, v, conic3, _ = _camera_rows(p, pose, Camera(K=K, width=w, height=h))
+            _, _, zc, u, v, conic3, _ = camera_rows(p, pose, Camera(K=K, width=w, height=h))
             records.append(dict(
                 iteration=i, band=n_sh_band, loss=float(loss), leaves=leaves,
                 slots=slots.tolist(), alive=state.alive[slots].tolist(),

@@ -251,6 +251,7 @@ def _vanilla_before(params, alive, pose, cam, bg, n_sh_band):
     the same order, inlined."""
     from gaussian_splatting_torch import geometry as geo
     from gaussian_splatting_torch.culling import build_layout, frustum_visible_rows
+    from gaussian_splatting_torch.ops import geometry as og
     from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
     from gaussian_splatting_torch.ops.render import render_tiles
     from gaussian_splatting_torch.structs import TileGrid
@@ -266,7 +267,7 @@ def _vanilla_before(params, alive, pose, cam, bg, n_sh_band):
                                    CFG.far_thresh, CFG.cull_mask_padding) & alive
     with torch.no_grad():
         layout = build_layout(u, v, conic3, zc, visible, grid, CFG.mh_dist, opacity=opacity_v)
-    feat, _ = rasterize.splat_features(params, u, v, conic3, opacity_v, pose, n_sh_band, True)
+    feat, _ = og.splat_features(params, u, v, conic3, opacity_v, pose, n_sh_band, True)
     img_tiles, T = render_tiles(feat, layout, bg, grid.x_tiles)
     return tiles_to_image(img_tiles, grid), T, visible, torch.stack([u, v], dim=1)
 
@@ -347,7 +348,8 @@ def test_card_step_runs_the_kernels_once_and_matches_the_cpu(card):
                                 config=CFG, camera_hw=(H, W), n_sh_band=0)
     torch.cuda.synchronize(card)
     launches = dict(telemetry.LAUNCHES)
-    assert launches == {"render_fwd": 1, "render_bwd": 1, "adam_step": 1}, launches
+    assert launches == {"geometry_fwd": 1, "render_fwd": 1, "render_bwd": 1, "geometry_bwd": 1,
+                        "adam_step": 1}, launches
     assert _build.library() is not None
     for k in scaffold.LEAVES:
         _assert_step(new.params[k].cpu(), cpu_new.params[k], new.opt_state.mu[k].cpu(),
