@@ -32,8 +32,8 @@ counters, that each went through its kernels:
   2^21 slots of 1.5M seeded gaussians at band 3 on both colour paths and
   at the 8.0M rows of a Scaffold-GS decode of 800,000 anchors, each timed
   alone against its byte bound, then the launches of one training step
-  and one served view (every view through rasterize launches the forward
-  once, every step the backward once: with_geometry);
+  and one served view (every view and depth map through rasterize
+  launches the forward once, every step the backward once: with_geometry);
 - training, Scaffold-GS ("[scaffold]"): tests/test_torch_scaffold.py's
   small scene decoded, rendered and trained 3 steps through
   trainer.train_step on the card, each against the plain reference
@@ -272,14 +272,15 @@ def phase(name):
 
 def with_geometry(want):
     """``want`` with the launches of the geometry kernel pair that its renders
-    imply: the forward once a view (each B1 or B3 launch through
-    ``rasterize``), the backward once a step (each B2 or B4 launch).  Keys
-    are kernel names, or (name, n_sh) pairs."""
+    imply: the forward once a view or depth map (each B1, B3 or B5 launch
+    through ``rasterize``), the backward once a step (each B2 or B4
+    launch).  Keys are kernel names, or (name, n_sh) pairs."""
     def kernel(key):
         return key[0] if isinstance(key, tuple) else key
 
     out = {k: v for k, v in want.items() if v}
-    views = sum(v for k, v in want.items() if kernel(k) in ("render_fwd", "render_sh_fwd"))
+    views = sum(v for k, v in want.items()
+                if kernel(k) in ("render_fwd", "render_sh_fwd", "depth_fwd"))
     steps = sum(v for k, v in want.items() if kernel(k) in ("render_bwd", "render_sh_bwd"))
     if views:
         out["geometry_fwd"] = views
@@ -342,14 +343,22 @@ def scene_view(device):
 
 
 def kernel_inputs(scene, cam, pose, render_kw, sh_band, alpha_kw):
-    from gaussian_splatting_torch.rasterize import depth_kernel_inputs
+    """B1/B2's inputs (feat, layout) and B5's as ``rasterize.render_depth``
+    forms them (rows 0-5 of the band-0 features without a far cull, then
+    the camera distance), and the grid."""
+    import torch
+
+    from gaussian_splatting_torch import geometry as geo
+    from gaussian_splatting_torch.ops.depth import FEAT_DEPTH
     from gaussian_splatting_torch.rasterize import kernel_inputs as raster_inputs
 
     params = {k: v.detach() for k, v in scene.params().items()}
     k = raster_inputs(params, scene.alive, pose, cam, n_sh_band=sh_band, **render_kw)
-    dfeat, dlayout, _ = depth_kernel_inputs(
-        params, scene.alive, pose, cam, **alpha_kw)
-    return (k.feat.contiguous(), k.layout), (dfeat.contiguous(), dlayout), k.grid
+    d = raster_inputs(params, scene.alive, pose, cam, far_thresh=float("inf"), **alpha_kw)
+    xyzT = params["xyz"].T
+    dist = geo.camera_distance_rows(*geo.transform_rows(xyzT[0], xyzT[1], xyzT[2], pose))
+    dfeat = torch.cat([d.feat[:FEAT_DEPTH], dist[None]])
+    return (k.feat.contiguous(), k.layout), (dfeat, d.layout), k.grid
 
 
 def sh_kernel_inputs(params, alive, pose, cam, render_kw, sh_band):

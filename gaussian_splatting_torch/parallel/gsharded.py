@@ -35,11 +35,10 @@ from gaussian_splatting_torch import trainer as T
 from gaussian_splatting_torch.culling import feature_layout
 from gaussian_splatting_torch.losses import eval_psnr_ssim, train_loss
 from gaussian_splatting_torch.ops.geometry import splat_rows
-from gaussian_splatting_torch.ops.reference_impl import tiles_to_image
-from gaussian_splatting_torch.ops.render import render_tiles
-from gaussian_splatting_torch.ops.render_sh import build_pixel_basis, render_tiles_sh
+from gaussian_splatting_torch.ops.render_sh import build_pixel_basis
 from gaussian_splatting_torch.parallel import comm
 from gaussian_splatting_torch.parallel.mesh import reduce_counts, reduce_over_data
+from gaussian_splatting_torch.rasterize import raster
 from gaussian_splatting_torch.structs import TILE_PX, Camera, TileGrid
 
 
@@ -100,19 +99,15 @@ def _band_image(params, alive, uv_offset, camera_K, camera_T_world, background_r
     feat_band = torch.cat([feat_full[:1], v_band[None], feat_full[2:]])
     with torch.no_grad():
         layout = feature_layout(feat_band, zc_full, vis_full, band_grid, config.mh_dist)
-    if per_pixel_sh:
-        # the band-local pixel ray through (x, y_local) is the global ray
-        # through (x, y_local + v_origin) when cy moves by -v_origin
-        shift = torch.zeros_like(camera_K)
-        shift[1, 2] = v_origin
-        with torch.no_grad():
+        basis = None
+        if per_pixel_sh:
+            # the band-local pixel ray through (x, y_local) is the global ray
+            # through (x, y_local + v_origin) when cy moves by -v_origin
+            shift = torch.zeros_like(camera_K)
+            shift[1, 2] = v_origin
             basis = build_pixel_basis(camera_K - shift, camera_T_world,
                                       (n_sh_band + 1) ** 2, band_grid)
-        img_tiles, _ = render_tiles_sh(feat_band, basis, layout, background_rgb,
-                                       band_grid.x_tiles)
-    else:
-        img_tiles, _ = render_tiles(feat_band, layout, background_rgb, band_grid.x_tiles)
-    band_img = tiles_to_image(img_tiles, band_grid)
+    band_img, _ = raster(feat_band, basis, layout, band_grid, background_rgb)
     return band_img, visible, [layout.num_splats, layout.num_visible, layout.truncated]
 
 
@@ -183,7 +178,8 @@ def dp_mp_train_step(
         # gather's backward sums the mp identical cotangents
         return loss / mesh.mp, (loss, psnr, visible, info)
 
-    _, (loss, psnr, visible, info), gparams, g_uv = T.value_and_grad(state, loss_fn)
+    _, (loss, psnr, visible, info), gparams, g_uv = T.value_and_grad(
+        state.params, loss_fn, T.zero_uv(state.alive))
     uv_grad = T.uv_grad_rows(g_uv, camera_K, visible)
     seen = visible.to(torch.int32)
     stats = [info["num_splats"], info["num_visible"], info["truncated"]]

@@ -12,9 +12,10 @@ gaussian) and ``mlp_color`` (k = 30, then sigmoid).  These are the
 source's defaults: feat_dim 32, n_offsets 10, appearance_dim 0, no
 distance inputs.
 
-``decode`` gives one view's neural gaussians as the rows that
-``rasterize.rasterize_rows`` takes, and ``render`` renders them through
-the shared layout and kernels B1/B2.  In a view:
+``decode`` gives one view's neural gaussians as the decoded rows that
+``rasterize.kernel_inputs`` takes, and ``render`` renders them through
+the shared layout and kernels B1/B2 (``rasterize.render_view``).  In a
+view:
 
 - the anchors decoded are the alive ones whose centres pass
   ``culling.frustum_visible_rows`` (the source prefilters with a
@@ -189,7 +190,7 @@ def decode(
     cull_mask_padding: float,
 ) -> dict:
     """One view's neural gaussians (module docstring) as ``rasterize.
-    rasterize_rows`` takes them: ``xyz``, ``scale`` (log-space),
+    kernel_inputs`` takes decoded rows: ``xyz``, ``scale`` (log-space),
     ``quaternion``, ``rgb`` (N, 3/3/4/3) and ``opacity`` (N,) in (-1, 1),
     N = 10 an anchor in view, anchor by anchor; those of opacity <= 0 are
     not rendered.  Differentiable in the leaves of ``params``
@@ -269,8 +270,8 @@ def render(
             rows = decode(params, anchor, alive, camera_T_world, camera,
                           near_thresh=near_thresh, far_thresh=far_thresh,
                           cull_mask_padding=cull_mask_padding)
-        res = rasterize.rasterize_rows(
-            rows, camera_T_world, camera, near_thresh=near_thresh, far_thresh=far_thresh,
-            cull_mask_padding=cull_mask_padding, mh_dist=mh_dist,
+        res = rasterize.render_view(
+            rows, None, camera_T_world, camera, near_thresh=near_thresh,
+            far_thresh=far_thresh, cull_mask_padding=cull_mask_padding, mh_dist=mh_dist,
             background_rgb=background_rgb)
     return res, rows

@@ -119,22 +119,28 @@ def _render(params, state, camera_K, camera_T_world, config, camera_hw,
     )
 
 
-def value_and_grad(state: TrainState, loss_fn):
-    """``loss_fn(params, uv_offset) -> (loss, aux)`` and its gradients at the
-    state's parameters and a zero (2, C) ``uv_offset``: (loss, aux,
-    gradients by leaf name, uv-space gradient (2, C)).  A leaf the loss does
-    not read (sh at band 0) gets a zero gradient."""
-    names = list(state.params)
-    params = {k: state.params[k].detach().requires_grad_(True) for k in names}
-    uv_zero = torch.zeros(2, state.alive.shape[0], dtype=torch.float32,
-                          device=state.alive.device, requires_grad=True)
-    loss, aux = loss_fn(params, uv_zero)
+def value_and_grad(params: dict, loss_fn, *inputs):
+    """``loss_fn(params, *inputs) -> (loss, aux)`` and its gradients at the
+    parameters and the extra inputs ``inputs`` (the vanilla step's zero
+    ``uv_offset``): (loss, aux, gradients by leaf name, *the inputs'
+    gradients).  A leaf the loss does not read (sh at band 0) gets a zero
+    gradient."""
+    names = list(params)
+    params = {k: params[k].detach().requires_grad_(True) for k in names}
+    inputs = [x.detach().requires_grad_(True) for x in inputs]
+    loss, aux = loss_fn(params, *inputs)
     with telemetry.span("gs::backward"):
         grads = torch.autograd.grad(
-            loss, [params[k] for k in names] + [uv_zero], allow_unused=True)
+            loss, [params[k] for k in names] + inputs, allow_unused=True)
     gparams = {k: g if g is not None else torch.zeros_like(params[k])
-               for k, g in zip(names, grads[:-1])}
-    return loss, aux, gparams, grads[-1]  # uv_offset reaches every gaussian
+               for k, g in zip(names, grads)}
+    return (loss, aux, gparams, *grads[len(names):])
+
+
+def zero_uv(alive: torch.Tensor) -> torch.Tensor:
+    """The zero (2, C) ``uv_offset`` whose gradient is the uv-space gradient
+    of every gaussian."""
+    return torch.zeros(2, alive.shape[0], dtype=torch.float32, device=alive.device)
 
 
 def camera_loss(state, gt_image, camera_K, camera_T_world, background_rgb, *,
@@ -150,7 +156,7 @@ def camera_loss(state, gt_image, camera_K, camera_T_world, background_rgb, *,
             loss, psnr = train_loss(res.image, gt, config.ssim_frac)
         return loss, (psnr, res)
 
-    return value_and_grad(state, loss_fn)
+    return value_and_grad(state.params, loss_fn, zero_uv(state.alive))
 
 
 def train_step(
@@ -217,9 +223,8 @@ def _scaffold_step(state: ScaffoldTrainState, gt_image, camera_K, camera_T_world
     h, w = camera_hw
     camera = Camera(K=camera_K, width=w, height=h)
     telemetry.count("steps")
-    with telemetry.span("gs::step"), scaffold.exact_float32():
-        names = list(state.params)
-        params = {k: state.params[k].detach().requires_grad_(True) for k in names}
+
+    def loss_fn(params):
         res, rows = scaffold.render(
             params, state.anchor, state.alive, camera_T_world, camera,
             near_thresh=config.near_thresh, far_thresh=config.far_thresh,
@@ -228,10 +233,10 @@ def _scaffold_step(state: ScaffoldTrainState, gt_image, camera_K, camera_T_world
         with telemetry.span("gs::loss"):
             loss, psnr = train_loss(res.image, gt, config.ssim_frac)
             loss = loss + scaffold.VOLUME_WEIGHT * scaffold.volume(rows)
-        with telemetry.span("gs::backward"):
-            grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-        gparams = {k: g if g is not None else torch.zeros_like(params[k])
-                   for k, g in zip(names, grads)}
+        return loss, (psnr, res, rows)
+
+    with telemetry.span("gs::step"), scaffold.exact_float32():
+        loss, (psnr, res, rows), gparams = value_and_grad(state.params, loss_fn)
         with telemetry.span("gs::adam"):  # with the step skip
             ok = step_ok(loss, gparams)
             new_state = adam_step(state, gparams, ok, config)

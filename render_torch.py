@@ -3,8 +3,10 @@
 
 The port's twin of render.py: loads a checkpoint (.npz, of either package)
 or a 3DGS .ply and renders the views of a COLMAP dataset or a circular
-orbit around the scene, optionally with depth maps.  On a CUDA device the
-rasterizer and the depth renderer run their hand-written kernels.
+orbit around the scene, optionally with depth maps.  On a CUDA device a
+view and a depth map each run through the hand-written kernels: the
+geometry kernel, then the rasterizer (a view) or the depth renderer B5 (a
+depth map).
 
     python render_torch.py runs/refscale7k/scene_final.ply --orbit 4 --depth
     python render_torch.py scene.ply --orbit 2 --device cpu --out renders/

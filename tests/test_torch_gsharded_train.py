@@ -17,6 +17,8 @@ from gaussian_splatting_torch import convert, trainer
 from gaussian_splatting_torch.config import SplatConfig
 from gaussian_splatting_torch.convert import scene_from_numpy
 from gaussian_splatting_torch.parallel import comm, gsharded
+from gaussian_splatting_torch.rasterize import rasterize
+from gaussian_splatting_torch.structs import Camera
 from tests.test_torch_gsharded import leaves
 from tests.torch_testutil import one_intra_op_thread  # noqa: F401
 
@@ -79,7 +81,8 @@ def _mp_rank(params, alive, gt, K, pose, bgs):
 
 def _one_rank(params, alive, gt, K, pose, bgs):
     """mp_train_step on a model mesh of one rank and trainer.train_step,
-    on both paths, from the same state."""
+    on both paths, from the same state; and the band render's image and
+    rasterize's."""
     torch.set_num_threads(1)
     mesh = comm.make_model_mesh(device_type="cpu")
     gt, K, pose, bg = torch.tensor(gt), torch.tensor(K), torch.tensor(pose), torch.tensor(bgs[0])
@@ -88,9 +91,18 @@ def _one_rank(params, alive, gt, K, pose, bgs):
         kw = dict(config=SplatConfig(use_sh_precompute=pre), camera_hw=HW, n_sh_band=band)
         a, ainfo = gsharded.mp_train_step(_state(params, alive), gt, K, pose, bg, mesh=mesh, **kw)
         b, binfo = trainer.train_step(_state(params, alive), gt, K, pose, bg, **kw)
+        state, cfg = _state(params, alive), kw["config"]
+        band_img, _, _ = gsharded.mp_render(state.params, state.alive, pose, K, config=cfg,
+                                            camera_hw=HW, n_sh_band=band, background_rgb=bg,
+                                            mesh=mesh)
+        res = rasterize(state.params, state.alive, pose, Camera(K=K, width=HW[1], height=HW[0]),
+                        near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+                        cull_mask_padding=cfg.cull_mask_padding, mh_dist=cfg.mh_dist,
+                        background_rgb=bg, n_sh_band=band, use_sh_precompute=pre)
         out[name] = ([x.numpy() for x in leaves(a)], [x.numpy() for x in leaves(b)],
                      {k: float(v) for k, v in ainfo.items()},
-                     {k: float(v) for k, v in binfo.items()})
+                     {k: float(v) for k, v in binfo.items()},
+                     band_img.detach().numpy(), res.image.detach().numpy())
     return out
 
 
@@ -174,11 +186,14 @@ def test_mp_step_skips_a_non_finite_shard(inputs, ranks):
 
 
 def test_one_rank_equals_train_step(inputs):
-    """On one rank the band is the image: mp_train_step gives
-    trainer.train_step's state and info bit for bit, on both paths."""
+    """On one rank the band is the image: mp_render gives rasterize's image,
+    and mp_train_step trainer.train_step's state and info, bit for bit, on
+    both paths."""
     [out] = comm.launch(_one_rank, 1, *inputs, device_type="cpu")
     for name in PATHS:
-        a, b, ainfo, binfo = out[name]
+        a, b, ainfo, binfo, band_img, img = out[name]
+        np.testing.assert_array_equal(band_img, img, err_msg=name)
+        assert (img != img[:1, :1]).any(axis=-1).mean() > 0.1, name
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y, err_msg=name)
         assert ainfo == binfo

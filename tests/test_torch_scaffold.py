@@ -302,8 +302,8 @@ def test_rows_entry_checks_its_rows():
                 rgb=torch.zeros(4, 3), opacity=torch.zeros(4, 1))
     _, pose, K = _scene()
     with pytest.raises(ValueError, match="opacity"):
-        rasterize.rasterize_rows(rows, pose, Camera(K, W, H), mh_dist=CFG.mh_dist,
-                                 background_rgb=BG, **_kw())
+        rasterize.kernel_inputs(rows, None, pose, Camera(K, W, H), mh_dist=CFG.mh_dist,
+                                **_kw())
 
 
 def _imports(path):
