@@ -34,6 +34,11 @@ counters, that each went through its kernels:
   alone against its byte bound, then the launches of one training step
   and one served view (every view and depth map through rasterize
   launches the forward once, every step the backward once: with_geometry);
+- the layout kernels ("[layout]"): csrc/layout.cu against their plain
+  version (culling._layout_plain) on garden view 0, with and without the
+  opacity-aware window, and on the 8.0M rows of a Scaffold-GS decode of
+  800,000 anchors, bit for bit, each timed beside the plain layout and
+  its byte bound (the sort's passes counted: layout_bytes);
 - training, Scaffold-GS ("[scaffold]"): tests/test_torch_scaffold.py's
   small scene decoded, rendered and trained 3 steps through
   trainer.train_step on the card, each against the plain reference
@@ -190,6 +195,17 @@ GEOMETRY_BWD_FLOOR = 1e-3
 GEOMETRY_FWD_OPS = 300
 GEOMETRY_BWD_OPS = 700
 
+# the layout kernels (csrc/layout.cu): bytes a gaussian and a splat move,
+# counted from the kernels.  A gaussian's rows (u, v, a, b, c, z: 4 bytes
+# each, visible 1, opacity 4) are read by the count and by the fill kernel;
+# its count is written, read by the scan and by the fill; its first slot
+# written and read.  A splat's key and id (12 bytes) are written once; the
+# radix sort reads its keys once for the histograms and then reads and
+# writes key and id once a pass of LAYOUT_RADIX_BITS; the tile starts read
+# the sorted keys once.
+LAYOUT_RADIX_BITS = 8  # cub's onesweep digits
+LAYOUT_SEED = 29
+
 ADC_CAPACITY = 524_288
 ADC_STEPS_BEFORE = 8  # two passes over the 4 views
 ADC_STEPS_AFTER = 4
@@ -271,10 +287,11 @@ def phase(name):
 
 
 def with_geometry(want):
-    """``want`` with the launches of the geometry kernel pair that its renders
-    imply: the forward once a view or depth map (each B1, B3 or B5 launch
-    through ``rasterize``), the backward once a step (each B2 or B4
-    launch).  Keys are kernel names, or (name, n_sh) pairs."""
+    """``want`` with the launches of the geometry kernel pair and the layout
+    kernels that its renders imply: the geometry forward and the layout's
+    count and fill kernels once a view or depth map (each B1, B3 or B5
+    launch through ``rasterize``), the geometry backward once a step (each
+    B2 or B4 launch).  Keys are kernel names, or (name, n_sh) pairs."""
     def kernel(key):
         return key[0] if isinstance(key, tuple) else key
 
@@ -283,7 +300,7 @@ def with_geometry(want):
                 if kernel(k) in ("render_fwd", "render_sh_fwd", "depth_fwd"))
     steps = sum(v for k, v in want.items() if kernel(k) in ("render_bwd", "render_sh_bwd"))
     if views:
-        out["geometry_fwd"] = views
+        out["geometry_fwd"] = out["layout_count"] = out["layout_fill"] = views
     if steps:
         out["geometry_bwd"] = steps
     return out
@@ -727,6 +744,38 @@ def geometry_case(label, gaussians, alive, pose, cam, n_sh_band, use_sh_precompu
     return out
 
 
+def in_view(n, spread, pose, gen):
+    """``n`` world points 2 to 20 units deep in front of the camera ``pose``
+    (camera_T_world), over ``spread`` times the frame, drawn from ``gen``."""
+    import torch
+
+    dev = pose.device
+    z = 2.0 + 18.0 * torch.rand(n, generator=gen, device=dev)
+    xy = (torch.rand(n, 2, generator=gen, device=dev) - 0.5) * spread
+    xc = torch.stack([xy[:, 0] * WIDTH / FOCAL * z, xy[:, 1] * HEIGHT / FOCAL * z, z], 1)
+    return (xc - pose[:3, 3]) @ pose[:3, :3]
+
+
+def scaffold_rows(pose, cam, cull, gen):
+    """The decoded rows (``scaffold.decode``) of GEOMETRY_ANCHORS Scaffold-GS
+    anchors, every one in view of ``pose``, drawn from ``gen``; the MLPs
+    take torch's default initialisation from the global seed."""
+    import torch
+
+    from gaussian_splatting_torch import scaffold
+
+    dev, m = pose.device, GEOMETRY_ANCHORS
+    anchors = scaffold.ScaffoldScene(
+        in_view(m, 0.9, pose, gen),
+        torch.rand(m, scaffold.N_OFFSETS, 3, generator=gen, device=dev) * 2 - 1,
+        torch.randn(m, scaffold.FEAT_DIM, generator=gen, device=dev),
+        torch.full((m, 6), math.log(0.02), device=dev), torch.ones(m, dtype=torch.bool,
+                                                                  device=dev))
+    with torch.no_grad():
+        return scaffold.decode(anchors.params(), anchors.anchor, anchors.alive, pose, cam,
+                               **cull)
+
+
 def geometry_phase(smi):
     """The "[geometry]" phase: the geometry kernel pair against its plain
     version (``ops.geometry.splat_rows_plain``) at the cells' shapes, 2^21
@@ -755,17 +804,9 @@ def geometry_phase(smi):
                                  [-math.sin(ang), 0, math.cos(ang)]], device=dev)
     pose[:3, 3] = torch.tensor([0.3, -0.2, 0.5], device=dev)
     gen = torch.Generator(dev).manual_seed(GEOMETRY_SEED)
-
-    def in_view(n, spread):
-        """World points 2 to 20 units deep, over ``spread`` times the frame."""
-        z = 2.0 + 18.0 * torch.rand(n, generator=gen, device=dev)
-        xy = (torch.rand(n, 2, generator=gen, device=dev) - 0.5) * spread
-        xc = torch.stack([xy[:, 0] * WIDTH / FOCAL * z, xy[:, 1] * HEIGHT / FOCAL * z, z], 1)
-        return (xc - pose[:3, 3]) @ pose[:3, :3]
-
     n = GEOMETRY_ALIVE
     scene = GaussianScene.create(
-        in_view(n, 1.2), torch.rand(n, 3, generator=gen, device=dev),
+        in_view(n, 1.2, pose, gen), torch.rand(n, 3, generator=gen, device=dev),
         torch.randn(n, 1, generator=gen, device=dev),
         -4.5 + 0.5 * torch.randn(n, 3, generator=gen, device=dev),
         torch.randn(n, 4, generator=gen, device=dev),
@@ -783,16 +824,7 @@ def geometry_phase(smi):
 
     # the rows of a Scaffold-GS decode: 800,000 anchors in view, 10 rows each
     torch.manual_seed(GEOMETRY_SEED)  # the MLPs' default initialisation
-    m = GEOMETRY_ANCHORS
-    anchors = scaffold.ScaffoldScene(
-        in_view(m, 0.9),  # every anchor in view
-        torch.rand(m, scaffold.N_OFFSETS, 3, generator=gen, device=dev) * 2 - 1,
-        torch.randn(m, scaffold.FEAT_DIM, generator=gen, device=dev),
-        torch.full((m, 6), math.log(0.02), device=dev), torch.ones(m, dtype=torch.bool,
-                                                                  device=dev))
-    with torch.no_grad():
-        dec = scaffold.decode(anchors.params(), anchors.anchor, anchors.alive, pose, cam,
-                              **cull)
+    dec = scaffold_rows(pose, cam, cull, gen)
     flat = torch.cat([dec["xyz"], dec["scale"], dec["quaternion"], dec["opacity"][:, None],
                       dec["rgb"]], 1).requires_grad_(True)
     rows = dict(xyz=flat[:, 0:3], scale=flat[:, 3:6], quaternion=flat[:, 6:10],
@@ -803,7 +835,7 @@ def geometry_phase(smi):
                         None, dict(flat=flat), smi, cull)
     for key, v in out.items():
         entries[key]["rows"] = v
-    del flat, rows, dec, anchors
+    del flat, rows, dec
 
     # the main paths: one training step, one served view
     state = trainer.init_train_state(scene, cfg)
@@ -832,6 +864,103 @@ def geometry_phase(smi):
                  bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
                  decoded_rows={k: e["rows"][k] for k in ("ms", "plain_ms", "bound_ms")})
             for key, e in entries.items()]
+
+
+def layout_bytes(n, splats, end_bit, opacity):
+    """Bytes the layout kernels move for ``n`` gaussians and ``splats``
+    splats, the sort over key bits [0, end_bit) (``LAYOUT_RADIX_BITS``'s
+    comment)."""
+    rows = 4 * 6 + 1 + (4 if opacity else 0)
+    passes = -(-end_bit // LAYOUT_RADIX_BITS)
+    return n * (2 * rows + 5 * 4) + splats * (12 + 8 + passes * 24 + 8)
+
+
+def layout_case(label, rows, opacity, grid, mh_dist, smi):
+    """One shape of the "[layout]" phase: the kernel layout against the plain
+    one on the same rows on the card, bit for bit, then both timed (CUDA
+    events, cold L2; the kernel path's time includes the device's wait for
+    the host after its one read) beside the byte bound."""
+    import torch
+
+    from gaussian_splatting_torch import culling, timing
+
+    got = culling._layout_cuda(*rows, grid, mh_dist, opacity)
+    want = culling._layout_plain(*rows, grid, mh_dist, opacity)
+    differ = [name for name, a, b in zip(culling.SplatLayout._fields, got, want)
+              if not (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)]
+    n = rows[0].shape[0]
+    print(f"[layout] {label}: {n} gaussians, {got.num_visible} visible, {got.num_splats} "
+          f"splats, {got.truncated} cells truncated, {grid.tile_count} tiles; kernel vs "
+          f"plain: {'bit for bit' if not differ else 'DIFFER in ' + ', '.join(differ)}")
+    if differ:
+        raise AssertionError(f"[layout] {label}: the kernels' layout is not the plain one")
+    timer = timing.Timer(rows[0].device)
+    ms, plain_ms, _ = timing.compare(
+        timer, lambda: culling._layout_cuda(*rows, grid, mh_dist, opacity),
+        lambda: culling._layout_plain(*rows, grid, mh_dist, opacity))
+    end_bit = 32 + (grid.tile_count - 1).bit_length()
+    nbytes = layout_bytes(n, got.num_splats, end_bit, opacity is not None)
+    bound_ms, bound_by = timing.bound(nbytes, 0)
+    print(f"[time] layout {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {-(-end_bit // LAYOUT_RADIX_BITS)} "
+          f"sort passes over {end_bit} key bits), {100 * bound_ms / ms:.1f}% of the bound "
+          f"(CUDA events, cold L2; {smi})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                splats=got.num_splats)
+
+
+def layout_phase(smi):
+    """The "[layout]" phase: the layout kernels (``culling._layout_cuda``)
+    against their plain version (``culling._layout_plain``) on the feature
+    rows of garden view 0 at 1296x840 and of one Scaffold-GS view (the
+    geometry phase's 800,000 anchors in view, decoded to 8.0M rows), each
+    timed beside the plain layout and its byte bound.  Returns the kernels
+    line's entry."""
+    import torch
+
+    from gaussian_splatting_torch import scaffold
+    from gaussian_splatting_torch.config import SplatConfig
+    from gaussian_splatting_torch.ops import common as cc
+    from gaussian_splatting_torch.ops.geometry import splat_rows
+    from gaussian_splatting_torch.structs import TileGrid
+
+    dev = torch.device(DEVICE)
+    cfg = SplatConfig()
+    cull = dict(near_thresh=cfg.near_thresh, far_thresh=cfg.far_thresh,
+                cull_mask_padding=cfg.cull_mask_padding)
+
+    def layout_rows(g):
+        f = g.feat
+        return ((f[cc.FEAT_U], f[cc.FEAT_V], f[cc.FEAT_A], f[cc.FEAT_B], f[cc.FEAT_C], g.z,
+                 g.visible), f[cc.FEAT_OPACITY])
+
+    scene, cam, pose = scene_view(dev)
+    grid = TileGrid(cam.height, cam.width)
+    with torch.no_grad():
+        g = splat_rows({k: v.detach() for k, v in scene.params().items()}, scene.alive,
+                       pose, cam, **cull)
+    rows, opacity = layout_rows(g)
+    garden = layout_case(f"garden view 0 {WIDTH}x{HEIGHT}", rows, opacity, grid,
+                         cfg.mh_dist, smi)
+    layout_case(f"garden view 0 {WIDTH}x{HEIGHT}, no opacity", rows, None, grid,
+                cfg.mh_dist, smi)
+    del g, rows, opacity, scene
+
+    # the rows of a Scaffold-GS decode: the geometry phase's anchors
+    gen = torch.Generator(dev).manual_seed(LAYOUT_SEED)
+    torch.manual_seed(LAYOUT_SEED)  # the MLPs' default initialisation
+    with torch.no_grad():
+        g = splat_rows(scaffold_rows(pose, cam, cull, gen), None, pose, cam, **cull)
+    rows, opacity = layout_rows(g)
+    neural = layout_case(f"Scaffold-GS view, {rows[0].shape[0]} decoded rows", rows,
+                         opacity, grid, cfg.mh_dist, smi)
+    return dict(name="layout (count, scan, fill, sort)", route="cuda",
+                source="gaussian_splatting_torch/csrc/layout.cu",
+                replaces=None,  # the JAX package builds its layout in XLA
+                launches=0, max_abs_err=0.0, ms=garden["ms"], plain_ms=garden["plain_ms"],
+                bound_ms=garden["bound_ms"], bound_by=garden["bound_by"], library_ms=None,
+                splats=garden["splats"],
+                decoded_rows={k: neural[k] for k in ("ms", "plain_ms", "bound_ms", "splats")})
 
 
 def cotangent(raw, seed):
@@ -2224,16 +2353,14 @@ def capture_phase(smi):
         n_views, n_test = len(runner.data.images), len(runner.test_split)
         n_alive = int(runner.state.alive.sum())
 
-        got = collections.Counter({k: v for k, v in launches.items()
-                                   if k in ("render_fwd", "render_bwd", "adam_step",
-                                            "geometry_fwd", "geometry_bwd")})
+        unsplit = ("render_fwd", "render_bwd", "adam_step", "geometry_fwd", "geometry_bwd",
+                   "layout_count", "layout_fill")
+        got = collections.Counter({k: v for k, v in launches.items() if k in unsplit})
         got.update(by_n_sh)
         want = with_geometry(expected_capture_launches(runner, out))
         print(f"[capture] launches {launches}; B3/B4 by n_sh "
               f"{dict(sorted(by_n_sh.items()))}")
-        if got != want or set(launches) - {"render_fwd", "render_bwd", "render_sh_fwd",
-                                           "render_sh_bwd", "adam_step", "geometry_fwd",
-                                           "geometry_bwd"}:
+        if got != want or set(launches) - {"render_sh_fwd", "render_sh_bwd", *unsplit}:
             raise AssertionError(f"[capture] expected launches {dict(want)}, got {dict(got)}")
         if {n for (_, n) in by_n_sh} != {4, 9, 16}:
             raise AssertionError(f"[capture] B3/B4 not at n_sh 4, 9 and 16: {by_n_sh}")
@@ -3346,6 +3473,8 @@ def main():
         adam_entry = adam_phase(smi)
     with phase("geometry kernel pair vs plain"):
         geometry_entries = geometry_phase(smi)
+    with phase("layout kernels vs plain"):
+        layout_entry = layout_phase(smi)
     with phase("training setup"):
         setup = training_setup(dev, scene_kw)
     with phase("training, DC"):
@@ -3451,6 +3580,8 @@ def main():
         key = e["name"].split()[0]
         e["launches"] = sum(part.get(key, 0) for part in parts)
         kernels.append(e)
+    layout_entry["launches"] = sum(part.get("layout_count", 0) for part in parts)
+    kernels.append(layout_entry)
     for key, label, source, replaces, point in PROBES:
         p = probes[key]
         kernels.append(dict(

@@ -76,6 +76,17 @@ SIGNATURES = {
         "gs_geometry_fwd": (_P, _P, _I, _I, _P, _P, _P, _P, _P),
         # ptrs, dims (host), mode, n_sh, grad_feat, grads (host), stream
         "gs_geometry_bwd": (_P, _P, _I, _I, _P, _P, _P),
+        # n, s, end_bit, out (host int64[2]): the scan's and the sort's scratch
+        "gs_layout_temp_bytes": (_I, _I, _I, _P),
+        # ptrs, strides (host), n, mh_dist, x_tiles, y_tiles, counts, first,
+        # sizes, temp, temp_bytes, stream
+        "gs_layout_count": (_P, _P, _I, _F, _I, _I, _P, _P, _P, _P, _L, _P),
+        # ptrs, strides (host), n, mh_dist, x_tiles, y_tiles, counts, first,
+        # keys, ids, stream
+        "gs_layout_fill": (_P, _P, _I, _F, _I, _I, _P, _P, _P, _P, _P),
+        # keys0, keys1, ids0, ids1, s, end_bit, temp, temp_bytes, n_tiles,
+        # starts, tile_counts, has, selector (host int), stream
+        "gs_layout_sort": (_P, _P, _P, _P, _I, _I, _P, _L, _I, _P, _P, _P, _P, _P),
     },
     "probes": {
         # vals, dest, n, rows, group, out, stream

@@ -11,19 +11,25 @@ sorts a quantised int32 key instead; the two orders differ only where two
 depths agree to within that quantisation.
 
 The layout is dynamic in size: ``gaussian_idx`` holds exactly the live
-splats, grouped by tile and front to back within a tile.  This is tensor
-code; the JAX package does the same work in XLA, not in a kernel.
+splats, grouped by tile and front to back within a tile.  It dispatches on
+the device of its rows: on a CUDA tensor it launches the hand-written
+layout ``csrc/layout.cu`` (a count kernel and a scan, one host read of the
+layout's sizes, a fill kernel, one radix sort), on a CPU tensor it runs
+``_layout_plain``, the same work as tensor code.  There is no fallback from
+one to the other, and the two give the same layout bit for bit.  The JAX
+package does this work in XLA, not in a kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from gaussian_splatting_torch import telemetry
+from gaussian_splatting_torch import _build, telemetry
 from gaussian_splatting_torch.ops import common as cc
 from gaussian_splatting_torch.structs import TILE_PX, TileGrid
 
@@ -31,7 +37,7 @@ from gaussian_splatting_torch.structs import TILE_PX, TileGrid
 # cells in enumeration order (x outer, y inner); the rest are counted in
 # SplatLayout.truncated.  Same cap as the JAX package's TIER_CELLS[-1].
 MAX_WINDOW_CELLS = 4096
-# candidate cells per piece of the layout's separating-axis test: its
+# candidate cells per piece of the plain layout's separating-axis test: its
 # temporaries stay this size whatever the splat count
 SAT_CHUNK = 1 << 21
 
@@ -228,7 +234,111 @@ def feature_layout(feat, z, visible, grid: TileGrid, mh_dist: float) -> SplatLay
 
 def _layout(u, v, a, b, c, z, visible, grid: TileGrid, mh_dist: float,
             opacity: Optional[torch.Tensor]) -> SplatLayout:
-    """``build_layout`` of the regularised entries a, b, c.
+    """``build_layout`` of the regularised entries a, b, c: the kernels on a
+    CUDA tensor, ``_layout_plain`` on a CPU tensor."""
+    if u.device.type == "cpu":
+        return _layout_plain(u, v, a, b, c, z, visible, grid, mh_dist, opacity)
+    if not u.is_cuda:
+        raise ValueError(f"build_layout: no kernel for device {u.device}")
+    return _layout_cuda(u, v, a, b, c, z, visible, grid, mh_dist, opacity)
+
+
+def _row_args(rows):
+    """(pointers, strides in elements) of the layout's (N,) rows on one CUDA
+    device, as the launchers take them (0 for an absent opacity)."""
+    n, dev = rows[0].shape[0], rows[0].device
+    for name, t in zip(("u", "v", "a", "b", "c", "z", "visible", "opacity"), rows):
+        if t is None:
+            continue
+        want = torch.bool if name == "visible" else torch.float32
+        if t.dtype != want or t.device != dev or tuple(t.shape) != (n,):
+            raise ValueError(f"build_layout: {name} must be {want} ({n},) on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    ptrs = (ctypes.c_longlong * 8)(*(0 if t is None else t.data_ptr() for t in rows))
+    strides = (ctypes.c_longlong * 8)(*(0 if t is None else t.stride(0) for t in rows))
+    return ptrs, strides
+
+
+def _temp_bytes(lib, n: int, s: int, end_bit: int):
+    """(scan, sort) scratch bytes of ``n`` counts and ``s`` keys."""
+    out = (ctypes.c_longlong * 2)()
+    _build.check(lib.gs_layout_temp_bytes(n, s, end_bit, out), "gs_layout_temp_bytes")
+    return out[0], out[1]
+
+
+def _layout_cuda(u, v, a, b, c, z, visible, grid: TileGrid, mh_dist: float,
+                 opacity: Optional[torch.Tensor]) -> SplatLayout:
+    """``_layout_plain``'s layout from the kernels of ``csrc/layout.cu``, on
+    the current stream, with one blocking read: the layout's three sizes,
+    which size its buffers."""
+    rows = (u, v, a, b, c, z, visible, opacity)
+    ptrs, strides = _row_args(rows)
+    n, dev = u.shape[0], u.device
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    grid_args = (float(mh_dist), grid.x_tiles, grid.y_tiles)
+    # the key's bits: the depth's 32 under the tile index's
+    end_bit = 32 + (grid.tile_count - 1).bit_length()
+    with telemetry.span("gs::layout.count"):
+        counts = torch.empty(n, dtype=torch.int32, device=dev)
+        first = torch.empty(n, dtype=torch.int32, device=dev)
+        sizes = torch.empty(3, dtype=torch.int64, device=dev)
+        scan_bytes, _ = _temp_bytes(lib, n, 0, end_bit)
+        temp = torch.empty(scan_bytes, dtype=torch.uint8, device=dev)
+        err = lib.gs_layout_count(ptrs, strides, n, *grid_args, counts.data_ptr(),
+                                  first.data_ptr(), sizes.data_ptr(), temp.data_ptr(),
+                                  scan_bytes, stream)
+        _build.check(err, "gs_layout_count")
+        telemetry.LAUNCHES["layout_count"] += 1
+        del temp
+        num_splats, num_visible, truncated = sizes.tolist()
+        telemetry.count("sync.layout.size")
+    if num_splats >= 1 << 31:
+        raise ValueError(f"build_layout: {num_splats} splats do not fit an int32 index")
+
+    with telemetry.span("gs::layout.fill"):
+        keys = torch.empty(num_splats, dtype=torch.int64, device=dev)
+        ids = torch.empty(num_splats, dtype=torch.int32, device=dev)
+        err = lib.gs_layout_fill(ptrs, strides, n, *grid_args, counts.data_ptr(),
+                                 first.data_ptr(), keys.data_ptr(), ids.data_ptr(), stream)
+        _build.check(err, "gs_layout_fill")
+        telemetry.LAUNCHES["layout_fill"] += 1
+        del counts, first
+
+    with telemetry.span("gs::layout.sort"):
+        keys_alt = torch.empty_like(keys)
+        ids_alt = torch.empty_like(ids)
+        _, sort_bytes = _temp_bytes(lib, n, num_splats, end_bit)
+        temp = torch.empty(sort_bytes, dtype=torch.uint8, device=dev)
+        starts = torch.empty(grid.tile_count + 1, dtype=torch.int32, device=dev)
+        tile_counts = torch.empty(grid.tile_count, dtype=torch.int32, device=dev)
+        has_output = torch.empty(grid.tile_count, dtype=torch.bool, device=dev)
+        selector = ctypes.c_int(0)
+        err = lib.gs_layout_sort(keys.data_ptr(), keys_alt.data_ptr(), ids.data_ptr(),
+                                 ids_alt.data_ptr(), num_splats, end_bit, temp.data_ptr(),
+                                 sort_bytes, grid.tile_count, starts.data_ptr(),
+                                 tile_counts.data_ptr(), has_output.data_ptr(),
+                                 ctypes.byref(selector), stream)
+        _build.check(err, "gs_layout_sort")
+        gaussian_idx = ids_alt if selector.value else ids
+        del keys, keys_alt, ids, ids_alt, temp
+    telemetry.count("splats", num_splats)
+    telemetry.count("visible", num_visible)
+    telemetry.count("truncated_cells", truncated)
+    return SplatLayout(
+        gaussian_idx=gaussian_idx,
+        tile_starts=starts,
+        tile_counts=tile_counts,
+        tile_has_output=has_output,
+        num_splats=num_splats,
+        num_visible=num_visible,
+        truncated=truncated,
+    )
+
+
+def _layout_plain(u, v, a, b, c, z, visible, grid: TileGrid, mh_dist: float,
+                  opacity: Optional[torch.Tensor]) -> SplatLayout:
+    """Plain PyTorch version of the layout kernels (``_layout``'s CPU path).
 
     Each temporary is let go once it has been read, the candidate cells are
     held as int32 (gaussian, tile x, tile y: 12 bytes a cell), and the

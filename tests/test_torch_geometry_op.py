@@ -535,8 +535,9 @@ def test_card_kernels_match_the_plain_version(card, mode, n_sh_band):
 @pytest.mark.card
 def test_card_step_and_view_launch_the_pair_once_and_read_nothing_more(card):
     """One train_step launches the forward and the backward kernel once
-    each, and a served view the forward once; a layout makes its 10 host
-    reads and the geometry none."""
+    each, and a served view the forward once; each builds one layout
+    through its count and fill kernels, which make the one host read, and
+    the geometry none."""
     scene = GaussianScene.create(*(v.cpu() for k, v in _params(4096, 30, edge=False)[0]
                                    .items() if k != "sh"), capacity=4096, device=card)
     state = trainer.init_train_state(scene, SplatConfig())
@@ -552,9 +553,12 @@ def test_card_step_and_view_launch_the_pair_once_and_read_nothing_more(card):
         torch.cuda.synchronize(card)
     counters = telemetry.window()["counters"]
     assert telemetry.LAUNCHES["geometry_fwd"] == 1 and telemetry.LAUNCHES["geometry_bwd"] == 1
-    assert sum(v for k, v in counters.items() if k.startswith("sync.")) == 10
+    assert telemetry.LAUNCHES["layout_count"] == telemetry.LAUNCHES["layout_fill"] == 1
+    assert {k: v for k, v in counters.items() if k.startswith("sync.")} == {
+        "sync.layout.size": 1}
     telemetry.LAUNCHES.clear()
     with torch.no_grad():
         rasterize.rasterize(scene.params(), scene.alive, pose, Camera(K, W, H),
                             mh_dist=3.0, background_rgb=bg, n_sh_band=3, **CULL)
     assert telemetry.LAUNCHES["geometry_fwd"] == 1 and "geometry_bwd" not in telemetry.LAUNCHES
+    assert telemetry.LAUNCHES["layout_count"] == telemetry.LAUNCHES["layout_fill"] == 1

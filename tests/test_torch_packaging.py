@@ -1,7 +1,7 @@
 """An installed port carries every native source it builds: the CUDA
 kernels and their shared header (``_build.SOURCE_DIRS``, the ``kernels``
 and ``probes`` libraries) and the host code of ``dataio``
-(``dataio/native.py::SOURCES``), 13 files.  (a) each matches a
+(``dataio/native.py::SOURCES``), 14 files.  (a) each matches a
 ``package-data`` glob of ``pyproject.toml``; (b) an offline wheel built from
 a copy of the tree holds each of them."""
 
@@ -34,7 +34,7 @@ def test_package_data_names_every_native_source():
     """Each source matches a glob of ``[tool.setuptools.package-data]`` under
     the key of the package whose directory holds it."""
     sources = native_sources()
-    assert len(sources) == 13, sources
+    assert len(sources) == 14, sources
     with open(ROOT / "pyproject.toml", "rb") as f:
         package_data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     matched = set()
@@ -49,7 +49,7 @@ def test_package_data_names_every_native_source():
 def test_offline_wheel_holds_every_native_source(tmp_path):
     """``pip wheel --no-deps --no-build-isolation --no-index`` of a copy of
     pyproject.toml and both packages (without ``_build_cache``): the wheel
-    holds all 13 sources.  setuptools writes ``build/`` and ``*.egg-info``
+    holds all 14 sources.  setuptools writes ``build/`` and ``*.egg-info``
     into its source tree, hence the copy."""
     src = tmp_path / "src"
     src.mkdir()
@@ -67,13 +67,13 @@ def test_offline_wheel_holds_every_native_source(tmp_path):
     with zipfile.ZipFile(wheel) as zf:
         names = set(zf.namelist())
     missing = [s for s in native_sources() if s not in names]
-    assert not missing, f"{wheel.name} lacks {len(missing)} of 13: {missing}"
+    assert not missing, f"{wheel.name} lacks {len(missing)} of 14: {missing}"
 
 
 def test_chip_smoke_copies_what_an_install_ships(tmp_path):
     """chip_smoke.py's install phase imports a copy of the package made by
     ``shipped_tree``: every .py file of the package and its subpackages
-    and the 13 sources, no build output."""
+    and the 14 sources, no build output."""
     data = chip_smoke.shipped_tree(str(tmp_path))
     assert data == native_sources()
     package = ROOT / "gaussian_splatting_torch"

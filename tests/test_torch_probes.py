@@ -263,13 +263,14 @@ def test_launcher_signature_matches_source(library, name):
 
 def test_probes_build_apart_from_the_package_kernels(tmp_path, monkeypatch):
     """The probes' sources are a library of their own: the package's library
-    holds B1-B5, the Adam step and the geometry pair only, and editing a
-    probe changes the probes' library name (so it is rebuilt) and leaves the
-    package's as it was."""
+    holds B1-B5, the Adam step, the geometry pair and the layout only, and
+    editing a probe changes the probes' library name (so it is rebuilt) and
+    leaves the package's as it was."""
     kernels = {src.name for src in _build.sources("kernels")}
     probes = {src.name for src in _build.sources("probes")}
     assert kernels == {"render_fwd.cu", "render_bwd.cu", "render_sh_fwd.cu",
-                       "render_sh_bwd.cu", "depth_fwd.cu", "adam.cu", "geometry.cu"}
+                       "render_sh_bwd.cu", "depth_fwd.cu", "adam.cu", "geometry.cu",
+                       "layout.cu"}
     assert probes == {"permute_probe.cu", "cumsum_scan.cu", "dma_scatter.cu"}
     before = {lib: _build.library_path(lib) for lib in ("kernels", "probes")}
     assert before["kernels"].name.startswith("libgs_kernels_")

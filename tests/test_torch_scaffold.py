@@ -348,7 +348,8 @@ def test_card_step_runs_the_kernels_once_and_matches_the_cpu(card):
                                 config=CFG, camera_hw=(H, W), n_sh_band=0)
     torch.cuda.synchronize(card)
     launches = dict(telemetry.LAUNCHES)
-    assert launches == {"geometry_fwd": 1, "render_fwd": 1, "render_bwd": 1, "geometry_bwd": 1,
+    assert launches == {"geometry_fwd": 1, "layout_count": 1, "layout_fill": 1,
+                        "render_fwd": 1, "render_bwd": 1, "geometry_bwd": 1,
                         "adam_step": 1}, launches
     assert _build.library() is not None
     for k in scaffold.LEAVES:
